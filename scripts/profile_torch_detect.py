@@ -2,17 +2,21 @@
 """Profile the PyTorch port's detect path on one CUDA card.
 
     python scripts/profile_torch_detect.py [--blocks 512] [--seed 0]
+        [--sync-mode fractional|integer] [--gate C]
 
 At the deployment geometry (block 16384, history 4920, batch 256, the
-committed 4914-sample golden template) on a synthetic capture it prints:
+committed 4914-sample golden template) on a synthetic capture, for the
+detect program of the chosen carrier sync and gate capacity (``--gate``;
+0 = off), it prints:
 
-  A  device-resident ``detect_raw`` batches back to back: wall and
+  A  device-resident ``submit_raw`` batches back to back: wall and
      enqueue ms per batch (host clock, one synchronise at the end);
   B  ``torch.profiler`` over a few batches: device kernel launches per
      batch, device busy and span time per batch, the device's idle share,
      and the kernels with the most device time;
   C  the detect program split into its stages with CUDA events (the
-     stages of ``BatchDetector._detect_batch``, called one by one);
+     stages of ``BatchDetector._detect_batch``, called one by one; under
+     the gate the correlation is one stage);
   D  the CLI on the capture written as a .card: the host's .card decode
      alone and the whole run, in IQ samples/s.
 
@@ -58,7 +62,7 @@ def back_to_back(det, raw, card_name, batches=20, trials=3):
     for trial in range(trials):
         t0 = time.perf_counter()
         for _ in range(batches):
-            det.detect_raw(raw)
+            det.submit_raw(raw)
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -72,7 +76,7 @@ def profiled(det, raw, card_name, batches=5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(batches):
-            det.detect_raw(raw)
+            det.submit_raw(raw)
         torch.cuda.synchronize()
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -124,9 +128,15 @@ def stages(det, raw, card_name, reps=12, skip=2):
         neigh = torch.abs(dirichlet.gather_neighborhood(
             spec, c_idx, det._carrier_offs))
         c_off = torch.where(c_det, det._interp(neigh), 0.0)
-        mark("dirichlet fit", marks)
-        corr = det._remove_carrier_and_despread(blocks, c_idx, c_off)
-        mark("shift + fft + despread + ifft", marks)
+        mark(det.carrier_interp_resolved + " fit", marks)
+        src = spec if det.config.sync_mode == "integer" else blocks
+        if det.config.gate_capacity:
+            rows = (src, c_idx, c_off, det._signal_energy(blocks))
+            det._corr_stage_gated(rows, c_det, det.config.gate_capacity)
+            mark("gated correlation stage", marks)
+            return marks
+        corr = det._remove_carrier_and_despread(src, c_idx, c_off)
+        mark("carrier removal + despread + ifft", marks)
         p_idx, p_pow, _ = power_peak.fused_power_peak(
             corr, det._corr_mask_full)
         mark("power_peak corr", marks)
@@ -153,7 +163,7 @@ def stages(det, raw, card_name, reps=12, skip=2):
             name, float(np.median(t)), len(t), card_name))
 
 
-def through_cli(cap, card_name, trials=2):
+def through_cli(cap, card_name, extra, trials=2):
     with tempfile.TemporaryDirectory(prefix="profile_detect_") as tmp:
         path = os.path.join(tmp, "capture.card")
         card.write_card(path, cap.timestamps, cap.indices,
@@ -170,7 +180,7 @@ def through_cli(cap, card_name, trials=2):
             cli_main(["detect", path, "-o", os.path.join(tmp, "out.toad"),
                       "-c", os.path.join(INPUT, "detector.cfg"),
                       "--template", tpl, "--batch-size", str(BATCH),
-                      "--device", "cuda", "--quiet"])
+                      "--device", "cuda", "--quiet"] + extra)
             total = time.perf_counter() - t0
             print("D trial {}: .card decode alone {:.4f} s for {} blocks; "
                   "CLI end to end {:.4f} s = {:.4g} IQ samples/s; {}".format(
@@ -185,6 +195,10 @@ def main(argv=None):
     parser.add_argument("--blocks", type=int, default=512,
                         help="blocks in the synthetic capture [512]")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sync-mode", default="fractional",
+                        choices=["fractional", "integer"])
+    parser.add_argument("--gate", type=int, default=0, metavar="C",
+                        help="gate capacity (0 = off) [0]")
     args = parser.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -195,8 +209,11 @@ def main(argv=None):
     template = np.load(os.path.join(INPUT, "template.npy"))
     cap = sim.synth_capture(num_blocks=args.blocks, bursts_every=4,
                             template=template, seed=args.seed)
-    det = BatchDetector(template, DetectorConfig(carrier_window=(7, 110)),
-                        device=dev)
+    det = BatchDetector(template, DetectorConfig(
+        carrier_window=(7, 110), sync_mode=args.sync_mode,
+        gate_capacity=args.gate), device=dev)
+    print("program: sync {}, gate capacity {}, batch {}; {}".format(
+        args.sync_mode, args.gate, BATCH, card_name))
     raw = torch.from_numpy(iq.iq_to_raw(cap.blocks[:BATCH])).to(dev)
     for _ in range(5):
         det.detect_raw(raw)
@@ -205,7 +222,8 @@ def main(argv=None):
     back_to_back(det, raw, card_name)
     profiled(det, raw, card_name)
     stages(det, raw, card_name)
-    through_cli(cap, card_name)
+    through_cli(cap, card_name, ["--sync-mode", args.sync_mode,
+                                 "--gate-capacity", str(args.gate)])
     print("peak device memory {:.1f} MB; {}".format(
         torch.cuda.max_memory_allocated() / 1e6, card_name))
     return 0

@@ -109,7 +109,7 @@ def test_resolve_device():
 
 
 def test_unported_flags_are_absent(tmp_path):
-    for flag in ("--device-unfold", "--gate-capacity=4", "--pallas=on",
+    for flag in ("--peak-filter=-1", "--emit-txid", "--pallas=on",
                  "--corr-interp=gaussian", "--carrier-interp=dirichlet"):
         with pytest.raises(SystemExit):
             main(detect_args(0, tmp_path / "x.toad", extra=[flag]))
@@ -117,13 +117,29 @@ def test_unported_flags_are_absent(tmp_path):
 
 def test_cli_never_imports_jax(tmp_path):
     """In a fresh interpreter (the test session itself has jax loaded),
-    running the port's detect CLI and importing every port module leaves
-    jax out of sys.modules."""
+    running the port's detect CLI (.card input; raw input with
+    --device-unfold, --gate-capacity and integer sync) and capture CLI
+    (host and device unfold), importing the live-source host modules
+    and every port module leaves jax out of sys.modules."""
     out = tmp_path / "rx.toad"
+    raw = os.path.join(GOLDEN, "fastdet", "input", "rx0.raw")
+    tpl = os.path.join(INPUT, "template.npy")
+    runs = [detect_args(1, out, 64, ["--quiet"]),
+            ["detect", raw, "--raw", "--device-unfold", "--gate-capacity",
+             "8", "--sync-mode", "integer", "--template", tpl,
+             "--carrier-window", "7-110", "--batch-size", "16", "--quiet",
+             "-o", str(tmp_path / "raw.toad"), "--device", "cpu"]]
+    for extra in ([], ["--device-unfold"]):
+        runs.append(["capture", "--raw-in", raw, "--carrier-window",
+                     "7-110", "--batch-size", "16", "--quiet", "-o",
+                     str(tmp_path / "gated.card"), "--device", "cpu"]
+                    + extra)
     code = (
         "import pkgutil, sys, importlib\n"
         "from thrifty_tpu_torch.cli import main\n"
-        "assert main({args!r}) == 0\n"
+        "for args in {runs!r}:\n"
+        "    assert main(args) == 0, args\n"
+        "import thrifty_tpu.io.rtl_tcp, thrifty_tpu.io.rtlsdr\n"
         "import thrifty_tpu_torch\n"
         "for m in pkgutil.walk_packages(thrifty_tpu_torch.__path__,\n"
         "                               'thrifty_tpu_torch.'):\n"
@@ -131,7 +147,7 @@ def test_cli_never_imports_jax(tmp_path):
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
-        "print('NO_JAX')\n").format(args=detect_args(1, out, 64, ["--quiet"]))
+        "print('NO_JAX')\n").format(runs=runs)
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
@@ -145,7 +161,8 @@ def test_cli_never_imports_jax(tmp_path):
 # The numpy host modules of the JAX package that the port may reuse.
 HOST_MODULES = {"thrifty_tpu.io.card", "thrifty_tpu.io.toad",
                 "thrifty_tpu.io.tpl", "thrifty_tpu.io.blocks",
-                "thrifty_tpu.io.stream", "thrifty_tpu.config.settings",
+                "thrifty_tpu.io.stream", "thrifty_tpu.io.rtl_tcp",
+                "thrifty_tpu.io.rtlsdr", "thrifty_tpu.config.settings",
                 "thrifty_tpu.config.parsers", "thrifty_tpu.dsp.util",
                 "thrifty_tpu.sim"}
 

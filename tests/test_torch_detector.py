@@ -157,13 +157,13 @@ def test_state_is_checked():
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("sync_mode", "integer", "sync_mode"),
+    ("corr_interp", "cosine", "corr_interp"),
     ("sync_mode", "preshift", "sync_mode"),
     ("sync_mode", "bogus", "unknown sync_mode"),
     ("corr_interp", "parabolic", "corr_interp"),
-    ("carrier_interp", "parabolic", "carrier_interp"),
+    ("carrier_interp", "gaussian", "carrier_interp"),
     ("peak_filter_len", -1, "peak_filter_len"),
-    ("gate_capacity", 8, "gate_capacity"),
+    ("carrier_interp", "polyfit", "carrier_interp"),
     ("carrier_thresh", (0.0, 15.0, 2.0), "carrier_thresh"),
     ("corr_thresh", (0.0, 15.0, 2.0), "corr_thresh"),
     ("history_len", 10, "history_len"),

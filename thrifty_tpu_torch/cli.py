@@ -14,6 +14,7 @@ HELP = """usage: python -m thrifty_tpu_torch.cli <command> [<args>]
 thrifty-tpu on PyTorch + CUDA.
 
 Receiver commands:
+    capture           Carrier-gate a raw I/Q stream into a .card archive
     detect            Detect positioning signals, estimate SoA (batched, GPU)
 
 Use 'python -m thrifty_tpu_torch.cli help <command>' for a command's
@@ -21,6 +22,7 @@ arguments.  Commands not listed here run on the JAX package
 (python -m thrifty_tpu.cli)."""
 
 COMMANDS = {
+    "capture": "thrifty_tpu_torch.pipeline.capture",
     "detect": "thrifty_tpu_torch.pipeline.detect",
 }
 

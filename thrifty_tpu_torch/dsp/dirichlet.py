@@ -97,3 +97,22 @@ def make_dirichlet_interpolator(block_len: int, carrier_len: int,
         return delta
 
     return interpolate
+
+
+def parabolic_interpolate(values: torch.Tensor, clip=None) -> torch.Tensor:
+    """Batched 3-point parabolic sub-bin interpolation.
+
+    offset = (c - a) / (4b - 2a - 2c) on the neighbourhood ``values``
+    [..., 3] = (a, b, c) (reference thrifty/carrier_sync.py:199-204),
+    with a +-1e-30 guard on the denominator.  ``clip`` bounds the offset
+    to +-clip: fastdet clips its carrier offset to +-0.5
+    (fastdet/corr_detector.cpp:88-101), the Python reference does not.
+    """
+    a, b, c = values[..., 0], values[..., 1], values[..., 2]
+    den = 4.0 * b - 2.0 * a - 2.0 * c
+    tiny = torch.where(den < 0.0, -1e-30, 1e-30)
+    den = torch.where(torch.abs(den) < 1e-30, tiny, den)
+    offset = (c - a) / den
+    if clip is not None:
+        offset = torch.clamp(offset, -clip, clip)
+    return offset

@@ -10,10 +10,16 @@ decoding of batch k+1 overlaps the card's work on batch k.  Batches
 are padded to a fixed shape with zero-signal bytes and the padding is
 dropped from the output.
 
-Options of the JAX CLI not implemented by the port yet (device-side
-unfold, live SDR sources, the carrier gate, the carrier peak filter,
-template banks, other interpolators, the TPU transform knobs) are not
-offered here.
+Inputs: a .card file, a raw uint8 I/Q stream (``--raw``, host unfold,
+or ``--device-unfold``: only the stream's new bytes are uploaded and
+the overlap-save rows are built on the device), or a live SDR
+(``--rtl-tcp``, ``--rtlsdr``).  ``--gate-capacity`` runs the
+correlation on the carrier-positive blocks only; ``--sync-mode
+integer`` (config key) gives fastdet's numerics.
+
+Options of the JAX CLI not implemented by the port yet (the carrier
+peak filter, template banks and ``--emit-txid``, the other
+interpolators, the TPU transform knobs) are not offered here.
 """
 
 from __future__ import annotations
@@ -22,7 +28,6 @@ import argparse
 import sys
 
 import numpy as np
-import torch
 
 from thrifty_tpu.config import settings as settings_mod
 from thrifty_tpu.config.parsers import normalize_freq_range
@@ -32,6 +37,7 @@ from thrifty_tpu.io import card, toad
 from thrifty_tpu.io.stream import StreamPump, prefetch_iter
 from thrifty_tpu_torch.device import DEVICES, resolve_device
 from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+from thrifty_tpu_torch.pipeline.host import PinnedUpload, open_source
 
 
 class SummaryFormatter:
@@ -71,7 +77,8 @@ class SummaryFormatter:
 
 
 def detect_batches(detector, batches, batch_size, rxid=-1,
-                   summary=None, summary_out=None, card_out=None):
+                   summary=None, summary_out=None, card_out=None,
+                   device_unfold=False):
     """Run the detector over an iterator of (ts, idx, raw) batches.
 
     Yields detection record arrays (toad.DETECTION_DTYPE) per batch.
@@ -79,33 +86,26 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
     signal) and the padded rows are dropped.  ``card_out``: optional
     stream teeing the raw bytes of corr-detected blocks as .card lines
     (reference fastdet/fastdet.cpp:210-219).
+    ``device_unfold``: batches carry CONTIGUOUS new stream bytes
+    ([n*2*new_len], from ``StreamPump.batches_contiguous``) and the
+    overlap-save unfold runs on the device against a carry kept there
+    (``detector.submit_raw_stream``); incompatible with ``card_out``
+    (the rows never exist on the host).
 
-    On a CUDA detector each batch is staged in one of two pinned host
-    buffers, used in turn, and copied with ``non_blocking=True``; the
-    buffer of the batch in flight is not touched again until that batch
-    has been drained (its outputs copied back, which orders after the
-    upload on the same stream).
+    Each batch is uploaded through :class:`PinnedUpload` and queued; a
+    batch is drained (its :class:`PendingBatch` resolved, which re-runs
+    an overflowed gated batch in full, and its outputs copied back) only
+    after the next one has been queued.
     """
-    device = detector.device
-    pinned = [None, None]
-    pending = []  # [(ts, idx, n_valid, raw, device_out)]
-    turn = 0
-
-    def upload(raw):
-        nonlocal turn
-        if device.type != "cuda":
-            return torch.from_numpy(raw)
-        k = turn
-        turn ^= 1
-        if pinned[k] is None or pinned[k].shape != raw.shape:
-            pinned[k] = torch.empty(raw.shape, dtype=torch.uint8,
-                                    pin_memory=True)
-        pinned[k].numpy()[...] = raw
-        return pinned[k].to(device, non_blocking=True)
+    if device_unfold and card_out is not None:
+        raise ValueError("card_out needs host-side overlap-save rows; "
+                         "incompatible with device_unfold")
+    upload = PinnedUpload(detector.device)
+    pending = []  # [(ts, idx, n_valid, raw, PendingBatch)]
 
     def drain(entry):
-        ts, idx, n, raw, dev_out = entry
-        out = {k: v.cpu().numpy()[:n] for k, v in dev_out.items()}
+        ts, idx, n, raw, batch = entry
+        out = {k: v.cpu().numpy()[:n] for k, v in batch.result().items()}
         soa = detector.soa(idx, out["corr_sample"], out["corr_offset"])
         if summary is not None and summary_out is not None:
             for i in range(n):
@@ -121,13 +121,23 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
             n = len(ts)
             if n == 0:  # a batch can be all-junk rows
                 continue
-            if n < batch_size:
-                raw = np.concatenate(
-                    [raw, np.full((batch_size - n, raw.shape[1]), 128,
-                                  np.uint8)])
-            # Upload raw uint8 (2 B/sample); conversion runs on device.
-            dev_out = detector.detect_raw(upload(np.ascontiguousarray(raw)))
-            pending.append((ts, idx, n, raw, dev_out))
+            if device_unfold:
+                if n < batch_size:
+                    raw = np.concatenate(
+                        [raw, np.full((batch_size - n) * 2
+                                      * detector.new_len, 128, np.uint8)])
+                # Contiguous new bytes only (no repeated history); the
+                # unfold runs on the device.
+                batch = detector.submit_raw_stream(upload(raw))
+            else:
+                if n < batch_size:
+                    raw = np.concatenate(
+                        [raw, np.full((batch_size - n, raw.shape[1]), 128,
+                                      np.uint8)])
+                # Upload raw uint8 (2 B/sample); conversion runs on
+                # device.
+                batch = detector.submit_raw(upload(raw))
+            pending.append((ts, idx, n, raw, batch))
             # Keep one batch in flight: overlap host decode with device
             # work.
             if len(pending) > 1:
@@ -151,15 +161,49 @@ def _main(argv=None):
                         help="input .card file ('-' streams from stdin)")
     parser.add_argument("--raw", action="store_true",
                         help="input is raw interleaved uint8 I/Q")
+    parser.add_argument("--rtl-tcp", type=str, default=None,
+                        metavar="HOST[:PORT]",
+                        help="detect live from an rtl_tcp server "
+                             "(implies --raw; configures freq/"
+                             "sample-rate/gain on connect)")
+    parser.add_argument("--rtlsdr", type=int, default=None, metavar="N",
+                        help="detect live from USB RTL-SDR device N via "
+                             "the in-process librtlsdr binding (implies "
+                             "--raw)")
+    parser.add_argument("--ppm", type=int, default=None,
+                        help="crystal frequency correction in ppm "
+                             "forwarded to the dongle")
+    parser.add_argument("--bias-tee", action="store_true",
+                        help="with --rtl-tcp/--rtlsdr: enable the dongle's "
+                             "bias tee (antenna power)")
+    parser.add_argument("--reconnect", type=int, default=0, metavar="N",
+                        help="with --rtl-tcp: survive server restarts, "
+                             "retrying up to N times with exponential "
+                             "backoff [default: 0 = exit on disconnect]")
     parser.add_argument("--t0", type=float, default=None,
                         help="with --raw: stamp blocks deterministically "
                              "as t0 + block_idx*block_dt instead of the "
                              "wall clock")
+    parser.add_argument("--device-unfold", action="store_true",
+                        help="upload only the raw stream's new bytes and "
+                             "build the overlap-save rows on the device; "
+                             "raw/live inputs only, incompatible with "
+                             "--card-out/--skip")
     parser.add_argument("-k", "--skip", type=int, default=0,
                         metavar="N",
-                        help="with --raw: discard the first N blocks and "
-                             "renumber the survivors from 0, like fastdet "
-                             "(ignored for .card input) [default: 0]")
+                        help="with --raw/--rtl-tcp/--rtlsdr: discard the "
+                             "first N blocks and renumber the survivors "
+                             "from 0, like fastdet (ignored for .card "
+                             "input) [default: 0]")
+    parser.add_argument("--gate-capacity", type=int, default=0,
+                        metavar="C",
+                        help="carrier-gated correlation: run the "
+                             "correlation stages on at most C "
+                             "carrier-positive blocks per batch (exact: "
+                             "a batch with more re-runs in full); size C "
+                             "above the expected carrier blocks per "
+                             "batch, e.g. batch/2 at <=25%% duty "
+                             "[default: 0 = off]")
     parser.add_argument("--quiet", action="store_true",
                         help="do not print per-block summary lines")
     group = parser.add_mutually_exclusive_group()
@@ -180,6 +224,25 @@ def _main(argv=None):
             "batch_size", "sync_mode", "tuner_freq", "tuner_gain"]
     config, args = settings_mod.load_args(parser, keys, argv=argv)
 
+    # Usage errors before any expensive setup, worded as the JAX CLI's.
+    if args.rtl_tcp is not None and args.rtlsdr is not None:
+        parser.error("give either --rtl-tcp or --rtlsdr, not both")
+    live = args.rtl_tcp if args.rtl_tcp is not None else args.rtlsdr
+    if live is not None and args.input != "-":
+        parser.error("give either an input file or a live SDR source, "
+                     "not both")
+    if args.device_unfold:
+        if not args.raw and live is None:
+            parser.error("--device-unfold needs a raw stream input "
+                         "(--raw, --rtl-tcp or --rtlsdr); .card input "
+                         "decodes to overlap-save rows already")
+        if args.card_out:
+            parser.error("--card-out needs host-side overlap-save "
+                         "rows; incompatible with --device-unfold")
+        if args.skip > 0:
+            parser.error("--skip filters host-side rows; incompatible "
+                         "with --device-unfold")
+
     device = resolve_device(args.device)
     template = tpl_io.load_template(config.template)
     bin_freq = config.sample_rate / config.block_size
@@ -192,16 +255,21 @@ def _main(argv=None):
         carrier_window=window,
         corr_thresh=config.corr_threshold,
         sync_mode=config.sync_mode,
+        gate_capacity=args.gate_capacity,
     ), device=device)
 
-    in_stream = sys.stdin.buffer if args.input == "-" \
-        else open(args.input, "rb")
+    in_stream = open_source(args, config, args.input)
+    if in_stream is None:
+        return 1
+    if live is not None:
+        args.raw = True
     pump = None
     if args.raw:
         pump = StreamPump(in_stream, config.block_size,
                           config.block_history, config.batch_size,
                           sample_rate=config.sample_rate, t0=args.t0)
-        batches = pump.batches()
+        batches = (pump.batches_contiguous() if args.device_unfold
+                   else pump.batches())
     else:
         # Parse/decode batches in a background thread so host IO
         # overlaps device compute.
@@ -262,7 +330,7 @@ def _main(argv=None):
         for records in detect_batches(
                 detector, counted(batches), config.batch_size,
                 rxid=config.rxid, summary=summary, summary_out=info_out,
-                card_out=card_out):
+                card_out=card_out, device_unfold=args.device_unfold):
             num += len(records)
             if out_stream is not None:
                 toad.save(out_stream, records)
@@ -289,8 +357,15 @@ def _main(argv=None):
                   counter["blocks"], elapsed, rate,
                   rate / config.sample_rate,
                   config.sample_rate / 1e6, device), file=info_out)
+        if args.gate_capacity:
+            print("gate: {} batches overflowed capacity {} and re-ran in "
+                  "full".format(detector.gate_overflows,
+                                args.gate_capacity), file=info_out)
         if pump is not None:
             print(pump.stats_line(), file=info_out)
+        if hasattr(in_stream, "stats_line"):
+            # USB ring occupancy/overflow report (rtlsdr_reader.c:310-325).
+            print(in_stream.stats_line(), file=info_out)
     if pump is not None:
         pump.close()
     return exit_code

@@ -7,9 +7,11 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels from ``thrifty_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version at the detect path's
-shapes and on the inputs each path of the port gives it (capture gate,
-integer sync, gated correlation and its overflow, device unfold), then
-drives the port's CLI (``thrifty_tpu_torch.cli``) on the card:
+shapes and on the inputs each path of the port gives it (capture gate
+with and without a stddev term, integer sync, gated correlation and its
+overflow, device unfold, a template bank's [B*T, N] rows and the gated
+bank's [C*T, N] rows, both stats masks, the peak filter), then drives
+the port on the card:
 
 - ``detect`` on the committed golden captures against the reference
   ``.toad`` goldens, and on a full-size synthetic capture (block 16384,
@@ -22,15 +24,28 @@ drives the port's CLI (``thrifty_tpu_torch.cli``) on the card:
 - the carrier gate on the JAX bench's mix (a burst every 4 blocks,
   capacity 128) against the ungated detector, and an overflowing
   capacity;
-- timings of the gated, integer and device-unfold programs and of the
-  CLIs, each printed with the card's name and power limit.
+- stddev threshold terms, the peak filter and the polyfit carrier fit
+  through the CLI, and ``capture`` with a stddev term;
+- the interpolator, carrier and preshift goldens of
+  ``tests/golden/interp`` through the CLI;
+- the code-division flow at full width (3 receivers x 512 blocks, a
+  3-code [3, 4914] bank, ``kitchen_sink.detect_all`` -> ``postdetect``
+  with the batched solver) against the same flow on the CPU;
+- the golden positioning chain detect -> identify -> match -> tdoa ->
+  pos (and ``pos --batched`` on the card) against ``data.tdoa`` and
+  ``data.pos``;
+- the batched position solver at 8192 groups against the port on the
+  CPU and scipy;
+- timings of the detect programs, the solver and the CLIs, each printed
+  with the card's name and power limit.
 
 Every phase raises on failure, so a non-zero exit means a failed phase;
 without a CUDA card it fails at once.  JAX is never imported.  The one
 exception to "nothing of the JAX package" is its numpy host modules,
-which the port itself reuses: ``thrifty_tpu.io.card`` to write and count
-captures and ``thrifty_tpu.sim`` to synthesise one; both leave ``jax``
-unloaded, and the script checks that at its end.
+which the port itself reuses (``io.card`` to write and count captures,
+``sim`` and ``dsp.template`` to synthesise them, ``pipeline.tdoa`` for
+TDOA groups); they leave ``jax`` unloaded, and the script checks that at
+its end.
 
 Output: lines for each phase, then a JSON line describing each kernel
 (with the paths that launched it and their launches per batch), the
@@ -427,12 +442,15 @@ def paths_phase(cap, template):
     new = torch.from_numpy(iq.iq_to_raw(
         cap.blocks[:BATCH, 4920:].reshape(-1))).to(dev)
 
-    def det(**kw):
-        return BatchDetector(template, DetectorConfig(
+    def det(tmpl=template, **kw):
+        return BatchDetector(tmpl, DetectorConfig(
             carrier_window=(7, 110), **kw), device=dev)
 
     gate = CarrierGate(16384, (7, 110), (0.0, 15.0, 0.0), history_len=4920,
                        device=dev)
+    gate_std = CarrierGate(16384, (7, 110), STDDEV_THRESH, device=dev)
+    bank = code_bank()
+    bank_rows = torch.from_numpy(iq.iq_to_raw(bank_capture(bank))).to(dev)
     paths = {
         "capture_gate": (lambda: gate(rows), [BATCH]),
         "capture_gate_device_unfold": (lambda: gate.gate_stream(new),
@@ -445,12 +463,28 @@ def paths_phase(cap, template):
             rows).result(), [BATCH, 8, BATCH]),
         "detect_device_unfold": (lambda: det().submit_raw_stream(
             new).result(), [BATCH, BATCH]),
+        # New inputs: a bank's [B*T, N] and gated [C*T, N] correlation
+        # rows, both stats masks, the capture gate's stats mask.
+        "bank": (lambda: det(bank).submit_raw(bank_rows).result(),
+                 [BATCH, 3 * BATCH]),
+        "bank_gated": (lambda: det(bank, gate_capacity=BATCH // 2).submit_raw(
+            bank_rows).result(), [BATCH, 3 * BATCH // 2]),
+        "stats": (lambda: det(carrier_thresh=STDDEV_THRESH,
+                              corr_thresh=CORR_STDDEV_THRESH).submit_raw(
+            rows).result(), [BATCH, BATCH]),
+        "bank_stats_preshift": (lambda: det(
+            bank, sync_mode="preshift", carrier_thresh=STDDEV_THRESH,
+            corr_thresh=CORR_STDDEV_THRESH).submit_raw(bank_rows).result(),
+            [BATCH, 3 * BATCH]),
+        "capture_gate_stddev": (lambda: gate_std(rows), [BATCH]),
+        "peak_filter": (lambda: det(peak_filter_len=-1).submit_raw(
+            rows).result(), [BATCH]),
     }
     orig = pp.fused_power_peak
     captured = []
 
     def spy(x, mask, stats_mask=None, layout="interleaved"):
-        captured.append((x.clone(), mask))
+        captured.append((x.clone(), mask, stats_mask))
         return orig(x, mask, stats_mask=stats_mask, layout=layout)
 
     worst_abs = worst_rel = 0.0
@@ -461,16 +495,23 @@ def paths_phase(cap, template):
             fn()
         finally:
             pp.fused_power_peak = orig
-        shapes = [tuple(x.shape) for x, _ in captured]
+        shapes = [tuple(x.shape) for x, _, _ in captured]
         check([s[0] for s in shapes] == rows_per_launch,
               "{}: launches on rows {}, expected {}".format(
                   name, shapes, rows_per_launch))
-        for k, (x, mask) in enumerate(captured):
+        stats = []
+        for k, (x, mask, smask) in enumerate(captured):
+            check(x.is_contiguous() and len(mask) == x.shape[1],
+                  "{}: launch {} rows not contiguous or mask length {} != "
+                  "{}".format(name, k, len(mask), x.shape[1]))
             _, err, rel = held_against_plain(
-                x, mask, what="{} launch {}".format(name, k))
+                x, mask, None if smask is None else smask.host,
+                what="{} launch {}".format(name, k))
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        print("{}: {} launches on {}, idx/peak bit-equal to plain".format(
-            name, len(shapes), shapes))
+            stats.append("none" if smask is None else "{}/{}".format(
+                int(smask.host.sum()), len(smask)))
+        print("{}: {} launches on {} (stats masks {}), idx/peak bit-equal "
+              "to plain".format(name, len(shapes), shapes, stats))
     print("sums max rel err {:.3g} (limit {:g})".format(worst_rel, SUM_RTOL))
     return worst_abs
 
@@ -712,6 +753,538 @@ def timing_phase(card_name, tmp, cap, template, raw_path):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+STDDEV_THRESH = (0.0, 15.0, 2.0)      # carrier: c + s*noise^2 + d*var
+CORR_STDDEV_THRESH = (0.0, 15.0, 2.0)
+CHIP_RATE = 0.999707e6
+
+
+def code_bank():
+    """The 3-code bank of tests/test_code_division.py: [3, 4914]."""
+    from thrifty_tpu.dsp import template as template_mod
+
+    return template_mod.generate_bank(11, [0, 1, 2], 2.4e6 / CHIP_RATE)
+
+
+def bank_capture(bank):
+    """One batch of full-size blocks carrying code 1, a burst every 4."""
+    from thrifty_tpu import sim
+
+    return sim.synth_capture(num_blocks=BATCH, bursts_every=4,
+                             template=bank[1], seed=1).blocks
+
+
+def synth_rx_captures(**kw):
+    """``sim.synth_rx_captures``, which imports ``corr_window`` from the
+    JAX package's xcorr module (and so jax); the port's ``corr_window``
+    is the same function and is provided under that module name for the
+    call."""
+    import types
+
+    from thrifty_tpu import sim
+    from thrifty_tpu_torch.dsp import xcorr
+
+    name = "thrifty_tpu.dsp.xcorr"
+    saved = sys.modules.get(name)
+    shim = types.ModuleType(name)
+    shim.corr_window = xcorr.corr_window
+    sys.modules[name] = shim
+    try:
+        return sim.synth_rx_captures(**kw)
+    finally:
+        if saved is None:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
+
+
+def device_launches(fn, reps=3):
+    """Device kernels per call of ``fn`` (every kernel, not only the
+    port's own), counted by torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(events) / reps
+
+
+# The .toad comparison of tests/test_golden_interp.py.
+INTERP = os.path.join(GOLDEN, "interp")
+INTERP_CASES = {
+    "corr_parabolic": (["--corr-interp", "parabolic"], "tight"),
+    "corr_cosine": (["--corr-interp", "cosine"], "tight"),
+    "corr_none": (["--corr-interp", "none"], "tight"),
+    "corr_autocorr": (["--corr-interp", "autocorr"],
+                      dict(hi=1e-2, median=1e-2, max=0.5)),
+    "corr_maximise": (["--corr-interp", "maximise"],
+                      dict(hi=3e-3, median=2e-3, max=0.05)),
+    "carrier_parabolic": (["--carrier-interp", "parabolic"], "tight"),
+    "carrier_gaussian": (["--carrier-interp", "gaussian"], "tight"),
+    "carrier_cosine": (["--carrier-interp", "cosine"], "tight"),
+    "carrier_none": (["--carrier-interp", "none"], "tight"),
+    "preshift": (["--sync-mode", "preshift",
+                  "--carrier-interp", "parabolic"], "tight"),
+}
+
+
+def compare_interp(got, ref, spec, what):
+    check(got.shape == ref.shape, "{}: {} vs {} detections".format(
+        what, got.shape[0], ref.shape[0]))
+    for col in TOAD_INT_COLS:
+        check(np.array_equal(got[:, col], ref[:, col]),
+              "{}: toad column {} differs".format(what, col))
+    for col, tol in ((9, dict(atol=1e-4)), (10, dict(rtol=1e-3)),
+                     (11, dict(rtol=1e-2)), (6, dict(rtol=1e-3, atol=1e-3)),
+                     (7, dict(rtol=1e-2, atol=1e-3))):
+        check(np.allclose(got[:, col], ref[:, col], **tol),
+              "{}: toad column {} beyond {}".format(what, col, tol))
+    d = np.abs(got[:, 5] - ref[:, 5])
+    if spec == "tight":
+        check(d.max() < 1e-4, "{}: corr_offset max {:.2e}".format(
+            what, d.max()))
+        check(np.allclose(got[:, 3], ref[:, 3], atol=1e-3),
+              "{}: soa beyond 1e-3".format(what))
+        return d.max()
+    hi = ref[:, 6] / np.maximum(ref[:, 7], 1e-12) > 10.0
+    check(hi.any() and (~hi).any(), what + ": capture must span SNRs")
+    check(d[hi].max() < spec["hi"] and np.median(d) < spec["median"]
+          and d.max() < spec["max"],
+          "{}: corr_offset hi {:.2e} median {:.2e} max {:.2e}".format(
+              what, d[hi].max(), np.median(d), d.max()))
+    return d.max()
+
+
+def interp_golden_phase(tmp):
+    """(a) The interpolator, carrier and preshift goldens of the
+    reference's experimental drivers, through the port's CLI on the
+    card."""
+    phase("interp goldens")
+    from thrifty_tpu.io import card
+
+    src = os.path.join(INPUT, "rx0.card")
+    blocks = len(card.read_card(src)[0])
+    common = ["--carrier-window", "7-110", "--quiet", "--rxid", "0",
+              "--template", os.path.join(INPUT, "template.npy"),
+              "--batch-size", str(BATCH), "--device", "cuda"]
+    per_batch = {}
+    for name, (extra, spec) in INTERP_CASES.items():
+        out = os.path.join(tmp, name + ".toad")
+        _, per_batch["detect_" + name] = run_cli(
+            "detect", [src, "-o", out] + common + extra, blocks, 2)
+        err = compare_interp(load_toad(out), load_toad(os.path.join(
+            INTERP, "rx0_{}.toad".format(name))), spec, name)
+        print("{}: matches rx0_{}.toad (max |corr_offset - golden| "
+              "{:.2e}); 2 kernel launches per batch".format(name, name, err))
+    return per_batch
+
+
+# tests/test_code_division.py's network; its 0.02-0.36 s schedule is
+# repeated every 0.4 s over the longer capture.
+CD_RX_POS = {0: np.array([0.0, 0.0]), 1: np.array([9000.0, 500.0]),
+             2: np.array([4000.0, 8000.0])}
+CD_BEACON_POS = {0: np.array([4500.0, 3000.0])}
+CD_MOBILE_POS = {2: np.array([6000.0, 2500.0])}
+CD_BLOCKS = 2 * BATCH
+# DETECTION_DTYPE field -> TOAD_TOLS column.
+TOAD_FIELDS = {"timestamp": 1, "soa": 3, "offset": 5, "energy": 6,
+               "noise": 7, "carrier_offset": 9, "carrier_energy": 10,
+               "carrier_noise": 11}
+
+
+def code_division_captures(bank, num_blocks=CD_BLOCKS):
+    reps = max(1, int(num_blocks * NEW_LEN / 2.4e6 / 0.4))
+    schedule = []
+    for k in range(reps):
+        schedule += [(0, t + 0.4 * k) for t in np.arange(0.02, 0.36, 0.05)]
+        schedule += [(2, t + 0.4 * k) for t in (0.085, 0.185, 0.285)]
+    caps = synth_rx_captures(
+        rx_pos=CD_RX_POS, tx_pos={**CD_BEACON_POS, **CD_MOBILE_POS},
+        tx_bins={0: 40, 2: 40}, tx_schedule=schedule, template=bank[0],
+        num_blocks=num_blocks, amplitude=0.6, noise_std=0.04,
+        clock_offsets={1: 777.25, 2: -123.5},
+        clock_drifts={1: 3e-6, 2: -2e-6}, seed=11,
+        tx_codes={0: bank[0], 2: bank[2]})
+    return ({rx: (c.timestamps, c.indices, c.blocks)
+             for rx, c in caps.items()}, len(schedule),
+            sum(1 for tx, _ in schedule if tx == 2))
+
+
+def run_code_division(caps, bank, dev, batch=BATCH, **kw):
+    """kitchen_sink.detect_all(txid_from_template) -> postdetect(keep_
+    txid) on ``dev``, the batched solver on ``dev``; returns (result,
+    power_peak launches)."""
+    import functools
+
+    from thrifty_tpu_torch.dsp import power_peak as pp
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+    from thrifty_tpu_torch.pipeline import kitchen_sink, pos
+
+    det = BatchDetector(bank, DetectorConfig(carrier_window=(7, 110), **kw),
+                        device=dev)
+    pp.launches = 0
+    detections = kitchen_sink.detect_all(caps, det, batch_size=batch,
+                                         txid_from_template=True)
+    launches = pp.launches
+    settings = kitchen_sink.PostdetectSettings(
+        freqmap=None, match_window=0.02, tdoa_est_window=8.0,
+        rx_pos=CD_RX_POS, beacon_pos=CD_BEACON_POS, sample_rate=2.4e6,
+        keep_txid=True)
+    return kitchen_sink.postdetect(
+        detections, settings, pos_estimator=functools.partial(
+            pos.solve_batched, device=dev)), launches
+
+
+def compare_code_division(got, ref, what):
+    check(len(got.toads) == len(ref.toads), "{}: {} vs {} toads".format(
+        what, len(got.toads), len(ref.toads)))
+    for k in ("rxid", "txid", "block", "sample", "carrier_bin"):
+        check(np.array_equal(got.toads[k], ref.toads[k]),
+              "{}: toads field {} differs".format(what, k))
+    for k, col in TOAD_FIELDS.items():
+        check(np.allclose(got.toads[k], ref.toads[k], **TOAD_TOLS[col]),
+              "{}: toads field {} beyond {}".format(what, k, TOAD_TOLS[col]))
+    check([sorted(m) for m in got.matches] == [sorted(m) for m in
+                                                ref.matches],
+          what + ": matches differ")
+    check(np.array_equal(got.pos["group_id"], ref.pos["group_id"]),
+          what + ": fixes differ")
+    err = np.hypot(got.pos["x"] - ref.pos["x"], got.pos["y"] - ref.pos["y"])
+    check(err.max() < 0.05, "{}: cuda vs cpu fix {:.3g} m".format(
+        what, err.max()))
+    return err.max()
+
+
+def code_division_phase():
+    """(b) The code-division path at full width: 3 receivers, a 3-code
+    bank [3, 4914], detect_all -> postdetect on the card against the same
+    run on the CPU, in fractional sync (ungated and gated at capacity
+    128), preshift sync and with the autocorr interpolator."""
+    phase("code division")
+    bank = code_bank()
+    t0 = time.perf_counter()
+    caps, sent, mobile = code_division_captures(bank)
+    print("synthesised 3 receivers x {} blocks, {} transmissions ({} "
+          "mobile) in {:.1f} s".format(CD_BLOCKS, sent, mobile,
+                                       time.perf_counter() - t0))
+    batches = 3 * math.ceil(CD_BLOCKS / BATCH)
+    per_batch = {}
+    for name, kw in (("bank", {}),
+                     ("bank_gated", dict(gate_capacity=BATCH // 2)),
+                     ("bank_preshift", dict(sync_mode="preshift")),
+                     ("bank_autocorr", dict(corr_interp="autocorr"))):
+        got, launches = run_code_division(caps, bank, torch.device("cuda"),
+                                          **kw)
+        check(launches == 2 * batches, "{}: {} kernel launches for {} "
+              "batches".format(name, launches, batches))
+        per_batch[name] = launches / batches
+        t0 = time.perf_counter()
+        ref, _ = run_code_division(caps, bank, torch.device("cpu"), **kw)
+        cpu_s = time.perf_counter() - t0
+        err = compare_code_division(got, ref, name)
+        check(set(np.unique(got.toads["txid"])) == {0, 2},
+              name + ": txids are not {0, 2}")
+        check(len(got.toads) == 3 * sent, "{}: {} toads for {} "
+              "transmissions x 3 receivers".format(name, len(got.toads),
+                                                   sent))
+        check(len(got.pos) == mobile, "{}: {} fixes for {} mobile "
+              "transmissions".format(name, len(got.pos), mobile))
+        miss = np.hypot(got.pos["x"] - CD_MOBILE_POS[2][0],
+                        got.pos["y"] - CD_MOBILE_POS[2][1])
+        check(miss.max() < 60.0, "{}: mobile fix {:.1f} m off".format(
+            name, miss.max()))
+        print("{}: txids {{0, 2}}, {} toads, {} fixes, worst {:.2f} m from "
+              "the mobile; toads, matches and fixes equal to the CPU run "
+              "(fixes within {:.2g} m; CPU took {:.1f} s); {} kernel "
+              "launches per batch".format(name, len(got.toads), len(got.pos),
+                                          miss.max(), err, cpu_s,
+                                          per_batch[name]))
+    return per_batch
+
+
+SOLVER_GROUPS = 8192
+RX4 = {0: np.array([0.0, 0.0]), 1: np.array([9000.0, 500.0]),
+       2: np.array([4000.0, 8000.0]), 3: np.array([-2000.0, 6000.0])}
+RX4_3D = {0: np.array([0.0, 0.0, 0.0]), 1: np.array([9000.0, 500.0, 300.0]),
+          2: np.array([4000.0, 8000.0, -200.0]),
+          3: np.array([-2000.0, 6000.0, 600.0])}
+# tests/test_pos.py's near-collinear and near-coplanar arrays.
+COLLINEAR = {0: np.array([2066.0, -1867.0]), 1: np.array([439.0, 29.0]),
+             2: np.array([-1205.0, 1922.0]),
+             3: np.array([-2837.0, 3821.0])}
+COPLANAR = {0: np.array([-29181.41857066, 25948.32954709, -222.0839601]),
+            1: np.array([16777.85870735, 22205.93886653, 162.13191117]),
+            2: np.array([8084.68323547, -17724.71793607, -203.5907017]),
+            3: np.array([2359.35794116, -20197.98664509, 174.45982677])}
+PAIRS6 = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+
+
+def forward_groups(rx_pos, n, seed, noise=10e-9):
+    """``n`` TDOA groups from the forward model: transmitters spread
+    over the array's box (+2 km; z in [0, 1500] m in 3-D), the 6 pairs
+    (4 in every third group: ragged), Gaussian TDOA noise."""
+    from thrifty_tpu.pipeline import tdoa
+
+    rng = np.random.default_rng(seed)
+    coords = np.array(list(rx_pos.values()))
+    lo, hi = coords.min(0) - 2000.0, coords.max(0) + 2000.0
+    if coords.shape[1] == 3:
+        lo[2], hi[2] = 0.0, 1500.0
+    txs = rng.uniform(lo, hi, (n, coords.shape[1]))
+    a = np.array([p[0] for p in PAIRS6])
+    b = np.array([p[1] for p in PAIRS6])
+    dist = np.linalg.norm(txs[:, None, :] - coords[None], axis=-1)
+    t = (dist[:, a] - dist[:, b]) / tdoa.SPEED_OF_LIGHT
+    t += rng.normal(0.0, noise, t.shape)
+    groups = []
+    for i in range(n):
+        k = 4 if i % 3 == 0 else 6
+        rows = np.zeros(k, dtype=tdoa.TDOA_DTYPE)
+        rows["rx0"], rows["rx1"], rows["tdoa"] = a[:k], b[:k], t[i, :k]
+        rows["snr"], rows["model_quality"] = 100.0, 1.0
+        groups.append(tdoa.TdoaGroup(group_id=i, timestamp=float(i), tx=3,
+                                     tdoas=rows))
+    return groups
+
+
+def residual_norms(fixes, rx_pos, groups):
+    from thrifty_tpu.pipeline import tdoa
+
+    out = np.empty(len(groups))
+    names = [k for k in ("x", "y", "z") if k in fixes.dtype.names]
+    for i, g in enumerate(groups):
+        p = np.array([fixes[k][i] for k in names])
+        d0 = np.linalg.norm(np.array([rx_pos[int(r)] for r in g.tdoas["rx0"]])
+                            - p, axis=1)
+        d1 = np.linalg.norm(np.array([rx_pos[int(r)] for r in g.tdoas["rx1"]])
+                            - p, axis=1)
+        out[i] = np.linalg.norm(d0 - d1 - g.tdoas["tdoa"]
+                                * tdoa.SPEED_OF_LIGHT)
+    return out
+
+
+def solver_phase(card_name):
+    """(d) The batched position solver at 8192 groups on the card: against
+    the port on the CPU (float64) and scipy's solve."""
+    phase("batched solver")
+    from thrifty_tpu_torch.pipeline import pos
+
+    dev = torch.device("cuda")
+    timings = {}
+    for name, rx_pos, n in (("2d", RX4, SOLVER_GROUPS),
+                            ("3d", RX4_3D, SOLVER_GROUPS),
+                            ("collinear", COLLINEAR, 1024),
+                            ("coplanar", COPLANAR, 1024)):
+        groups = forward_groups(rx_pos, n, seed=len(name))
+        got = pos.solve_batched(groups, rx_pos, device=dev)
+        t0 = time.perf_counter()
+        ref = pos.solve_batched(groups, rx_pos, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(len(got) == len(ref) == n, name + ": groups skipped")
+        names = [k for k in ("x", "y", "z") if k in got.dtype.names]
+        diff = np.sqrt(sum((got[k] - ref[k]) ** 2 for k in names))
+        res_got = residual_norms(got, rx_pos, groups)
+        res_ref = residual_norms(ref, rx_pos, groups)
+        # Beyond 1e-6 m only where the two fixes are minima of equal
+        # residual (mirror minima, flat valleys): float64 rounding of
+        # the two libraries picks between them.
+        far = diff > 1e-6
+        check(np.all(np.abs(res_got - res_ref)[far]
+                     <= 1e-9 * res_ref[far] + 1e-9),
+              "{}: cuda vs cpu fixes differ at unequal residual".format(name))
+        # scipy on the first 512 groups.  On the 2-D array, test_pos's
+        # assertions: no residual worse than scipy's by 1% + 1 m, and
+        # fixes within 0.5 m where the residuals match.  The 4-receiver
+        # 3-D array (3 independent TDOAs), the collinear and the
+        # coplanar arrays have distinct minima of equal residual, and
+        # the multi-start solver (JAX's as well) misses scipy's minimum
+        # on a few coplanar groups: those counts are printed.
+        m = 512
+        sp = pos.solve(groups[:m], rx_pos, verbose=False)
+        res_sp = residual_norms(sp, rx_pos, groups[:m])
+        worse = res_got[:m] > res_sp * 1.01 + 1.0
+        same = np.abs(res_got[:m] - res_sp) <= 1e-6 * res_sp + 1e-6
+        sp_diff = np.sqrt(sum((got[k][:m] - sp[k]) ** 2 for k in names))
+        if name == "2d":
+            check(not worse.any(), name + ": residual worse than scipy's")
+            check(np.all(sp_diff[same] < 0.5),
+                  name + ": fix > 0.5 m from scipy at equal residual")
+        # Device program alone, host set-up excluded.
+        args = solver_inputs(groups, rx_pos)
+        call = lambda: pos.solve_groups_batched(*args, iters=30, device=dev)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        launches = device_launches(call, reps=1)
+        timings[name] = float(np.median(ms))
+        print("{}: {} groups, cuda vs cpu max {:.3g} m ({} beyond 1e-6 m, all "
+              "at equal residual); first {} vs scipy: {} worse than scipy's "
+              "residual by > 1% + 1 m, {} at equal residual ({} of them "
+              "> 0.5 m apart: other minima); solver {:.2f} ms per call "
+              "(median of 5, CUDA events, H2D and D2H included; cpu {:.2f} s "
+              "per solve_batched), {:.0f} device kernels per call; {}".format(
+                  name, n, diff.max(), int(far.sum()), m, int(worse.sum()),
+                  int(same.sum()), int((sp_diff[same] >= 0.5).sum()),
+                  timings[name], cpu_s, launches, card_name))
+    return timings
+
+
+def solver_inputs(groups, rx_pos):
+    from thrifty_tpu_torch.pipeline import pos
+
+    pmax = max(len(g.tdoas) for g in groups)
+    dims = len(next(iter(rx_pos.values())))
+    n = len(groups)
+    tp, mask = np.zeros((n, pmax)), np.zeros((n, pmax), bool)
+    rx0, rx1 = np.zeros((n, pmax, dims)), np.zeros((n, pmax, dims))
+    for i, g in enumerate(groups):
+        k = len(g.tdoas)
+        tp[i, :k], mask[i, :k] = g.tdoas["tdoa"], True
+        rx0[i, :k] = [rx_pos[int(a)] for a in g.tdoas["rx0"]]
+        rx1[i, :k] = [rx_pos[int(b)] for b in g.tdoas["rx1"]]
+        rx0[i, k:], rx1[i, k:] = rx0[i, 0], rx1[i, 0]
+    coords = np.array(list(rx_pos.values()))
+    return tp, mask, rx0, rx1, (coords.min(0) - pos.MAX_DIST,
+                                coords.max(0) + pos.MAX_DIST)
+
+
+def chain_phase(tmp):
+    """(e) The golden positioning chain through the port's CLI: detect on
+    the card -> identify -> match -> tdoa -> pos, and pos --batched on
+    the card, against tests/golden/data.tdoa and data.pos."""
+    phase("positioning chain")
+    from thrifty_tpu_torch.cli import main as cli
+
+    tpl = os.path.join(INPUT, "template.npy")
+    for rxid in (0, 1, 2):
+        detect([os.path.join(INPUT, "rx{}.card".format(rxid)), "-o",
+                os.path.join(tmp, "c{}.toad".format(rxid))]
+               + common_args("cuda", tpl, rxid) + ["--carrier-window",
+                                                   "7-110"])
+    d = lambda name: os.path.join(tmp, name)
+    rx_cfg = os.path.join(INPUT, "pos-rx.cfg")
+    for args in (["identify"] + [d("c{}.toad".format(i)) for i in range(3)]
+                 + ["-o", d("c.toads"), "-m",
+                    os.path.join(INPUT, "freq-map.cfg")],
+                 ["match", d("c.toads"), "-o", d("c.match"), "-w", "0.02"],
+                 ["tdoa", d("c.toads"), d("c.match"), "-o", d("c.tdoa"),
+                  "-r", rx_cfg, "-b", os.path.join(INPUT, "pos-beacon.cfg")],
+                 ["pos", d("c.tdoa"), "-o", d("c.pos"), "-r", rx_cfg],
+                 ["pos", d("c.tdoa"), "-o", d("b.pos"), "-r", rx_cfg,
+                  "--batched", "--device", "cuda"]):
+        check(cli(args) == 0, "{} failed".format(args[0]))
+    ref, got = load_toad(os.path.join(GOLDEN, "data.tdoa")), \
+        load_toad(d("c.tdoa"))
+    check(got.shape == ref.shape, "data.tdoa: different group structure")
+    check(np.array_equal(got[:, (0, 2, 3, 4, 8, 9)],
+                         ref[:, (0, 2, 3, 4, 8, 9)]), "data.tdoa ids differ")
+    check(np.allclose(got[:, 1], ref[:, 1], atol=1e-9)
+          and np.allclose(got[:, 5], ref[:, 5], atol=0.01)
+          and np.allclose(got[:, 6:8], ref[:, 6:8], atol=0.05),
+          "data.tdoa beyond tolerance")
+    ref = load_toad(os.path.join(GOLDEN, "data.pos"))
+    for name, pos_tol in (("c.pos", 0.05), ("b.pos", 0.5)):
+        got = load_toad(d(name))
+        check(got.shape == ref.shape, name + ": different fix count")
+        check(np.array_equal(got[:, (0, 2)], ref[:, (0, 2)]),
+              name + ": group/tx differ")
+        check(np.allclose(got[:, 1], ref[:, 1], atol=1e-9)
+              and np.allclose(got[:, 3], ref[:, 3],
+                              **(dict(atol=1e-5) if name == "c.pos"
+                                 else dict(rtol=1e-3)))
+              and np.allclose(got[:, 4], ref[:, 4], rtol=0.05)
+              and np.allclose(got[:, 5:], ref[:, 5:], atol=pos_tol),
+              "{}: beyond tolerance of data.pos".format(name))
+    print("detect (cuda) -> identify -> match -> tdoa -> pos: data.tdoa "
+          "and data.pos ({} fixes) within tests/test_golden_reference.py's "
+          "tolerances; pos --batched --device cuda within 0.5 m".format(
+              len(ref)))
+
+
+def program_timings(card_name, template):
+    """ms and device kernels per 256-block batch of the new detect
+    programs (CUDA events around 10 batches queued back to back)."""
+    phase("program timings")
+    from thrifty_tpu_torch.dsp import iq
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+
+    dev = torch.device("cuda")
+    bank = code_bank()
+    rows = torch.from_numpy(iq.iq_to_raw(bank_capture(bank))).to(dev)
+    out = {}
+    for name, tmpl, kw in (
+            ("fractional", template, {}),
+            ("bank", bank, {}),
+            ("preshift", template, dict(sync_mode="preshift")),
+            ("bank_preshift", bank, dict(sync_mode="preshift")),
+            ("autocorr", template, dict(corr_interp="autocorr")),
+            ("maximise", template, dict(corr_interp="maximise")),
+            ("stats", template, dict(carrier_thresh=STDDEV_THRESH,
+                                     corr_thresh=CORR_STDDEV_THRESH)),
+            ("peak_filter", template, dict(peak_filter_len=-1))):
+        det = BatchDetector(tmpl, DetectorConfig(carrier_window=(7, 110),
+                                                 **kw), device=dev)
+        fn = lambda: det.submit_raw(rows)
+        ms = [events_ms(fn) for _ in range(2)]
+        launches = device_launches(fn)
+        out[name] = (float(np.median(ms)), launches)
+        print("{}: {} ms per {}-block batch (2 turns, CUDA events around 10 "
+              "batches queued back to back), {:.0f} device kernels per "
+              "batch; {}".format(name, "/".join("{:.3f}".format(m)
+                                                for m in ms),
+                                 BATCH, launches, card_name))
+    return out
+
+
+def options_phase(card_name, tmp, cap, tpl_path, raw_path):
+    """Launches per batch of the detect options that change the kernel's
+    inputs or count, through the CLI on the full-size capture: stddev
+    terms (both stats masks), the peak filter (1 launch: the carrier
+    search is torch ops), the polyfit carrier fit (the one interpolator
+    without a reference golden), and the capture gate with a stddev
+    term."""
+    phase("detect options through the CLI")
+    n = len(cap.indices)
+    card_path = os.path.join(tmp, "full.card")
+    ref = load_toad(os.path.join(tmp, "full_gpu.toad"))
+    per_batch = {}
+    for name, extra, launches in (
+            ("detect_stats", ["--carrier-threshold", "15s+2d",
+                              "--corr-threshold", "15s+2d"], 2),
+            ("detect_peak_filter", ["--peak-filter", "-1"], 1),
+            ("detect_carrier_polyfit", ["--carrier-interp", "polyfit"], 2)):
+        out = os.path.join(tmp, name + ".toad")
+        seconds, per_batch[name] = run_cli(
+            "detect", [card_path, "-o", out] + common_args("cuda", tpl_path)
+            + extra, n, launches)
+        got = load_toad(out)
+        check_bursts(got, cap, name)
+        print("{}: {} detections ({} without the option), every burst "
+              "within 0.05 samples; {} kernel launches per batch; CLI {:.4g} "
+              "IQ samples/s; {}".format(name, len(got), len(ref), launches,
+                                         n * NEW_LEN / seconds, card_name))
+    out = os.path.join(tmp, "cap_std.card")
+    _, per_batch["capture_gate_stddev"] = run_cli("capture", [
+        "--raw-in", raw_path, "-o", out, "--quiet", "--carrier-window",
+        "7-110", "--carrier-threshold", "15s+2d", "--batch-size",
+        str(BATCH), "--device", "cuda"], n, 1)
+    print("capture --carrier-threshold 15s+2d: {} blocks archived; 1 kernel "
+          "launch per batch".format(len(card_lines(out))))
+    return per_batch
+
+
 def main():
     card_name = card_phase()
     build_phase()
@@ -741,7 +1314,13 @@ def main():
                                          tpl_path))
         paths.update(gate_phase(card_name, tmp, cap, template, raw_path,
                                 tpl_path))
+        paths.update(options_phase(card_name, tmp, cap, tpl_path, raw_path))
+        paths.update(interp_golden_phase(tmp))
+        paths.update(code_division_phase())
+        chain_phase(tmp)
+        solver_phase(card_name)
         timing_phase(card_name, tmp, cap, template, raw_path)
+        program_timings(card_name, template)
         kernel["paths"] = sorted(paths)
         kernel["launches_per_batch"] = paths
     finally:

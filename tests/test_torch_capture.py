@@ -85,9 +85,24 @@ def test_gate_stream_matches_jax(block, history):
         jgate.reset_stream()
 
 
-def test_stddev_term_raises():
-    with pytest.raises(ValueError, match="stddev"):
-        capture.CarrierGate(BLOCK, (7, 110), (0.0, 15.0, 2.0))
+@pytest.mark.parametrize("thresh", [(0.0, 15.0, 2.0), (0.0, 5.0, 40.0)])
+def test_stddev_term_raises(thresh):
+    """A stddev term no longer raises: the port's gate takes var(|X|)
+    from the kernel's stats sums in the same launch, and its decisions
+    equal the JAX gate's (jnp.var) exactly; with a large d the term
+    changes decisions."""
+    cap, stream = bursty_stream(num_blocks=24, seed=4)
+    raw = jiq.iq_to_raw(cap.blocks)
+    got = capture.CarrierGate(BLOCK, (7, 110), thresh)(raw)
+    ref = jcapture.CarrierGate(BLOCK, (7, 110), thresh)(raw)
+    assert_gate_match(got, ref)
+    base = capture.CarrierGate(BLOCK, (7, 110), thresh[:2] + (0.0,))(raw)
+    if thresh[2] > 10:
+        assert not torch.equal(got[0], base[0])
+    gate = capture.CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY)
+    jgate = jcapture.CarrierGate(BLOCK, (7, 110), thresh,
+                                 history_len=HISTORY)
+    assert_gate_match(gate.gate_stream(stream), jgate.gate_stream(stream))
 
 
 def test_header_and_build_args_match_jax():

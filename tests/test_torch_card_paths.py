@@ -1,6 +1,8 @@
-"""The port's streaming, integer-sync, gated and capture paths on a CUDA
-card against the same port on the CPU (which the other test_torch_*
-files hold against the JAX package).
+"""The port's streaming, integer-sync, gated, bank, preshift,
+interpolator, stddev, peak-filter and capture paths on a CUDA card
+against the same port on the CPU (which the other test_torch_* files
+hold against the JAX package), and the power/peak kernel against its
+plain version on the bank rows and both stats masks.
 
 Every test is marked ``cuda`` and skips where there is no card.  The
 file imports no JAX, so it runs on a machine without it:
@@ -41,16 +43,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def template():
+def template(seed=5):
     # A 31-chip +-1 code at 2 samples per chip (the shape of the 5-bit
     # Gold template the JAX-side tests use), from a seed.
-    chips = np.random.default_rng(5).choice([-1.0, 1.0], size=31)
+    chips = np.random.default_rng(seed).choice([-1.0, 1.0], size=31)
     return np.repeat(chips, 2)
 
 
-def capture(bursts_every=2, seed=3):
+def bank():
+    return np.stack([template(5), template(6), template(7)])
+
+
+def capture(bursts_every=2, seed=3, tmpl=None):
     return sim.synth_capture(
-        num_blocks=16, bursts_every=bursts_every, template=template(),
+        num_blocks=16, bursts_every=bursts_every,
+        template=template() if tmpl is None else tmpl,
         block_len=BLOCK, history_len=HISTORY, carrier_bin=40.25,
         amplitude=0.8, noise_std=0.05, seed=seed)
 
@@ -65,11 +72,15 @@ def assert_same(card, cpu):
             np.testing.assert_allclose(g, c, err_msg=k, **TOLS[k])
 
 
-def pair(dev, **kw):
+def pair(dev, tmpl=None, **kw):
     cfg = DetectorConfig(block_len=BLOCK, history_len=HISTORY,
                          carrier_window=(7, 110), **kw)
-    return (BatchDetector(template(), cfg, device=dev),
-            BatchDetector(template(), cfg))
+    tmpl = template() if tmpl is None else tmpl
+    return (BatchDetector(tmpl, cfg, device=dev), BatchDetector(tmpl, cfg))
+
+
+STATS = dict(carrier_thresh=(0.0, 15.0, 40.0),
+             corr_thresh=(0.0, 15.0, 600.0))
 
 
 @pytest.mark.parametrize("kw,launches", [
@@ -77,11 +88,22 @@ def pair(dev, **kw):
     (dict(gate_capacity=12), 2),          # 8 carriers: gated
     (dict(gate_capacity=4), 3),           # overflow: full re-run
     (dict(sync_mode="integer", gate_capacity=4), 3),
+    (dict(sync_mode="preshift"), 2),
+    (dict(corr_interp="autocorr"), 2),
+    (dict(corr_interp="maximise"), 2),
+    (dict(corr_interp="cosine", carrier_interp="polyfit"), 2),
+    (STATS, 2),                           # both stats masks
+    (dict(peak_filter_len=-1), 1),        # carrier search: torch ops
+    (dict(bank=True), 2),                 # [B*T, N] correlation rows
+    (dict(bank=True, gate_capacity=12, sync_mode="preshift"), 2),
+    (dict(bank=True, gate_capacity=4), 3),
 ])
 def test_detector_on_card_matches_cpu(cuda_device, kw, launches):
-    cap = capture()
+    kw = dict(kw)
+    tmpl = bank() if kw.pop("bank", False) else None
+    cap = capture(tmpl=None if tmpl is None else tmpl[1])
     raw = iq.iq_to_raw(cap.blocks)
-    card, cpu = pair(cuda_device, **kw)
+    card, cpu = pair(cuda_device, tmpl, **kw)
     before = pp.launches
     got = card.detect_raw(torch.from_numpy(raw).to(cuda_device))
     torch.cuda.synchronize()
@@ -100,13 +122,14 @@ def test_stream_on_card_matches_cpu(cuda_device):
     assert card._stream.carry.device.type == "cuda"
 
 
-def test_capture_gate_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("thresh", [(0.0, 15.0, 0.0), (0.0, 5.0, 40.0)])
+def test_capture_gate_on_card_matches_cpu(cuda_device, thresh):
     cap = capture(bursts_every=3, seed=21)
     raw = iq.iq_to_raw(cap.blocks)
     new = raw[:, 2 * HISTORY:].reshape(-1)
-    card = CarrierGate(BLOCK, (7, 110), (0.0, 15.0, 0.0),
-                       history_len=HISTORY, device=cuda_device)
-    cpu = CarrierGate(BLOCK, (7, 110), (0.0, 15.0, 0.0), history_len=HISTORY)
+    card = CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY,
+                       device=cuda_device)
+    cpu = CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY)
     before = pp.launches
     for got, ref in ((card(raw), cpu(raw)),
                      (card.gate_stream(new), cpu.gate_stream(new))):
@@ -117,3 +140,38 @@ def test_capture_gate_on_card_matches_cpu(cuda_device):
             else:
                 np.testing.assert_allclose(g, r, rtol=1e-4)
     assert pp.launches == before + 2
+
+
+def test_kernel_on_bank_rows_and_stats_masks(cuda_device):
+    """The power/peak kernel against its plain version on the inputs the
+    bank and the stddev terms give it: the [B*T, N] correlation rows of
+    a bank (and the gathered [C*T, N] rows of the gated bank) with the
+    correlation window and the first corr_len lags as stats mask, and
+    the carrier spectrum with an all-true stats mask.  idx and peak
+    bit-equal, sums within 1e-5 relative."""
+    calls = []
+    orig = pp.fused_power_peak
+
+    def spy(x, mask, stats_mask=None, layout="interleaved"):
+        calls.append((x.clone(), mask, stats_mask))
+        return orig(x, mask, stats_mask=stats_mask, layout=layout)
+
+    cap = capture(tmpl=bank()[2])
+    pp.fused_power_peak = spy
+    try:
+        for kw in (STATS, dict(STATS, gate_capacity=12)):
+            BatchDetector(bank(), DetectorConfig(
+                block_len=BLOCK, history_len=HISTORY, carrier_window=(7, 110),
+                **kw), device=cuda_device)(cap.blocks)
+    finally:
+        pp.fused_power_peak = orig
+    assert [tuple(x.shape) for x, _, _ in calls] == [
+        (16, BLOCK), (48, BLOCK), (16, BLOCK), (36, BLOCK)]
+    for x, mask, stats in calls:
+        got = [g.cpu() for g in pp.fused_power_peak(x, mask, stats)]
+        ref = [r.cpu() for r in pp.fused_power_peak_reference(
+            x.real, x.imag, mask.bool, stats.bool)]
+        assert torch.equal(got[0], ref[0])
+        assert torch.equal(got[1], ref[1])
+        for g, r in zip(got[2:], ref[2:]):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=0)

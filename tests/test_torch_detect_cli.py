@@ -109,36 +109,98 @@ def test_resolve_device():
 
 
 def test_unported_flags_are_absent(tmp_path):
-    for flag in ("--peak-filter=-1", "--emit-txid", "--pallas=on",
-                 "--corr-interp=gaussian", "--carrier-interp=dirichlet"):
+    """The JAX CLI's TPU knobs have no counterpart in the port."""
+    for flag in ("--pallas=on", "--fft-impl=xla", "--fft-precision=high",
+                 "--carrier-fast=off", "--carrier-precision=high",
+                 "--ramp-fast=off"):
         with pytest.raises(SystemExit):
             main(detect_args(0, tmp_path / "x.toad", extra=[flag]))
+
+
+KITCHEN_SINK = """
+import functools
+from thrifty_tpu.io import tpl
+from thrifty_tpu.pipeline import identify, tdoa
+from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+from thrifty_tpu_torch.pipeline import kitchen_sink, pos
+det = BatchDetector(tpl.load_template({inp!r} + '/template.npy'),
+                    DetectorConfig(carrier_window=(7, 110)))
+dets = kitchen_sink.detect_all(
+    {{i: {inp!r} + '/rx%d.card' % i for i in range(3)}}, det, batch_size=64)
+with open({inp!r} + '/freq-map.cfg') as f:
+    freqmap = identify.load_freqmap(f)
+settings = kitchen_sink.PostdetectSettings(
+    freqmap=freqmap, match_window=0.02, tdoa_est_window=8.0,
+    rx_pos=tdoa.load_pos_config({inp!r} + '/pos-rx.cfg'),
+    beacon_pos=tdoa.load_pos_config({inp!r} + '/pos-beacon.cfg'),
+    sample_rate=2.4e6)
+res = kitchen_sink.postdetect(dets, settings, pos_estimator=functools.partial(
+    pos.solve_batched, device='cpu'))
+assert len(res.pos) == {fixes}, len(res.pos)
+"""
 
 
 def test_cli_never_imports_jax(tmp_path):
     """In a fresh interpreter (the test session itself has jax loaded),
     running the port's detect CLI (.card input; raw input with
-    --device-unfold, --gate-capacity and integer sync) and capture CLI
-    (host and device unfold), importing the live-source host modules
-    and every port module leaves jax out of sys.modules."""
+    --device-unfold, --gate-capacity and integer sync; a template bank
+    with --emit-txid; the maximise interpolator), its capture CLI (host
+    and device unfold), identify -> match -> tdoa -> pos --batched on
+    the golden chain, and kitchen_sink, then importing the live-source
+    host modules and every port module, leaves jax out of
+    sys.modules."""
+    from thrifty_tpu import sim
+    from thrifty_tpu.dsp import iq
+    from thrifty_tpu.dsp import template as template_mod
+    from thrifty_tpu.io import card
+
     out = tmp_path / "rx.toad"
     raw = os.path.join(GOLDEN, "fastdet", "input", "rx0.raw")
     tpl = os.path.join(INPUT, "template.npy")
+    bank = template_mod.generate_bank(5, [0, 1, 2], 2.0)
+    np.save(tmp_path / "bank.npy", bank)
+    cap = sim.synth_capture(num_blocks=8, bursts_every=2, template=bank[1],
+                            block_len=2048, history_len=256,
+                            carrier_bin=40.25, amplitude=0.8,
+                            noise_std=0.05, seed=3)
+    card.write_card(str(tmp_path / "bank.card"), cap.timestamps,
+                    cap.indices, iq.iq_to_raw(cap.blocks))
     runs = [detect_args(1, out, 64, ["--quiet"]),
             ["detect", raw, "--raw", "--device-unfold", "--gate-capacity",
              "8", "--sync-mode", "integer", "--template", tpl,
              "--carrier-window", "7-110", "--batch-size", "16", "--quiet",
-             "-o", str(tmp_path / "raw.toad"), "--device", "cpu"]]
+             "-o", str(tmp_path / "raw.toad"), "--device", "cpu"],
+            ["detect", str(tmp_path / "bank.card"), "--emit-txid",
+             "--template", str(tmp_path / "bank.npy"), "--block-size",
+             "2048", "--history", "256", "--carrier-window", "7-110",
+             "--batch-size", "8", "--quiet", "-o",
+             str(tmp_path / "bank.toads"), "--device", "cpu"]]
+    runs += [detect_args(i, tmp_path / ("rx%d.toad" % i), 64,
+                         ["--quiet"] + (["--corr-interp", "maximise"]
+                                        if i == 0 else []))
+             for i in range(3)]
+    chain = str(tmp_path)
+    runs += [["identify"] + [chain + "/rx%d.toad" % i for i in range(3)]
+             + ["-o", chain + "/rx.toads", "-m", INPUT + "/freq-map.cfg"],
+             ["match", chain + "/rx.toads", "-o", chain + "/rx.match",
+              "-w", "0.02"],
+             ["tdoa", chain + "/rx.toads", chain + "/rx.match", "-o",
+              chain + "/data.tdoa", "-r", INPUT + "/pos-rx.cfg", "-b",
+              INPUT + "/pos-beacon.cfg"],
+             ["pos", chain + "/data.tdoa", "-o", chain + "/data.pos", "-r",
+              INPUT + "/pos-rx.cfg", "--batched", "--device", "cpu"]]
     for extra in ([], ["--device-unfold"]):
         runs.append(["capture", "--raw-in", raw, "--carrier-window",
                      "7-110", "--batch-size", "16", "--quiet", "-o",
                      str(tmp_path / "gated.card"), "--device", "cpu"]
                     + extra)
+    fixes = len(np.atleast_2d(np.loadtxt(os.path.join(GOLDEN, "data.pos"))))
     code = (
         "import pkgutil, sys, importlib\n"
         "from thrifty_tpu_torch.cli import main\n"
         "for args in {runs!r}:\n"
         "    assert main(args) == 0, args\n"
+        "{sink}\n"
         "import thrifty_tpu.io.rtl_tcp, thrifty_tpu.io.rtlsdr\n"
         "import thrifty_tpu_torch\n"
         "for m in pkgutil.walk_packages(thrifty_tpu_torch.__path__,\n"
@@ -147,7 +209,8 @@ def test_cli_never_imports_jax(tmp_path):
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
-        "print('NO_JAX')\n").format(runs=runs)
+        "print('NO_JAX')\n").format(
+            runs=runs, sink=KITCHEN_SINK.format(inp=INPUT, fixes=fixes))
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
@@ -156,6 +219,9 @@ def test_cli_never_imports_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX" in proc.stdout
     assert_toad_matches(out, os.path.join(GOLDEN, "rx1.toad"))
+    txids = np.atleast_2d(np.loadtxt(tmp_path / "bank.toads"))[:, 1]
+    assert len(txids) == len(cap.bursts) and np.all(txids == 1)
+    assert len(np.atleast_2d(np.loadtxt(tmp_path / "data.pos"))) == fixes
 
 
 # The numpy host modules of the JAX package that the port may reuse.
@@ -164,7 +230,19 @@ HOST_MODULES = {"thrifty_tpu.io.card", "thrifty_tpu.io.toad",
                 "thrifty_tpu.io.stream", "thrifty_tpu.io.rtl_tcp",
                 "thrifty_tpu.io.rtlsdr", "thrifty_tpu.config.settings",
                 "thrifty_tpu.config.parsers", "thrifty_tpu.dsp.util",
-                "thrifty_tpu.sim"}
+                "thrifty_tpu.sim",
+                # identify / match / tdoa: the server's numpy stages,
+                # run by the port's CLI and kitchen_sink as they are.
+                "thrifty_tpu.pipeline.identify",
+                "thrifty_tpu.pipeline.matchmaker",
+                "thrifty_tpu.pipeline.tdoa",
+                # pos: its scipy solver, DOP and .pos I/O; jax only
+                # inside _make_batched_solver, which the port never calls.
+                "thrifty_tpu.pipeline.pos",
+                # stats: tdoa's numpy statistics.
+                "thrifty_tpu.stats",
+                # gold / template: numpy Gold codes and template banks.
+                "thrifty_tpu.dsp.gold", "thrifty_tpu.dsp.template"}
 
 
 def _jax_package_imports(path):

@@ -156,31 +156,32 @@ def test_state_is_checked():
         BatchDetector.from_numpy_state(TPL, cfg, empty)
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("corr_interp", "cosine", "corr_interp"),
-    ("sync_mode", "preshift", "sync_mode"),
-    ("sync_mode", "bogus", "unknown sync_mode"),
-    ("corr_interp", "parabolic", "corr_interp"),
-    ("carrier_interp", "gaussian", "carrier_interp"),
-    ("peak_filter_len", -1, "peak_filter_len"),
-    ("carrier_interp", "polyfit", "carrier_interp"),
-    ("carrier_thresh", (0.0, 15.0, 2.0), "carrier_thresh"),
-    ("corr_thresh", (0.0, 15.0, 2.0), "corr_thresh"),
-    ("history_len", 10, "history_len"),
+@pytest.mark.parametrize("kw,match", [
+    (dict(corr_interp="cubic"), "unknown corr_interp"),
+    (dict(sync_mode="bogus"), "unknown sync_mode"),
+    (dict(carrier_interp="spline"), "unknown carrier_interp"),
+    (dict(sync_mode="preshift", num_preshift=1), "num_preshift"),
+    (dict(gate_capacity=-1), "gate_capacity"),
+    (dict(history_len=10), "history_len"),
 ])
-def test_unported_options_raise(field, value, match):
-    kw = dict(block_len=BLOCK, history_len=HISTORY)
-    kw[field] = value
-    cfg = DetectorConfig(**kw)
+def test_unported_options_raise(kw, match):
+    """Every option of the JAX detector is ported; values it refuses are
+    refused here too, with its wording."""
+    cfg = DetectorConfig(**dict(dict(block_len=BLOCK, history_len=HISTORY),
+                                **kw))
     with pytest.raises(ValueError, match=match):
         BatchDetector(TPL, cfg)
+    with pytest.raises(ValueError, match=match):
+        JaxDetector(TPL, JaxConfig(**dict(
+            dict(block_len=BLOCK, history_len=HISTORY), **kw)))
 
 
 def test_template_bank_raises():
-    bank = np.stack([TPL, TPL])
+    """A [T, L] bank is ported (tests/test_torch_bank.py); a template of
+    any other rank raises."""
     with pytest.raises(ValueError, match="template"):
-        BatchDetector(bank, DetectorConfig(block_len=BLOCK,
-                                           history_len=HISTORY))
+        BatchDetector(np.stack([[TPL, TPL]]), DetectorConfig(
+            block_len=BLOCK, history_len=HISTORY))
 
 
 def test_bad_batch_shape_raises():

@@ -1,7 +1,9 @@
 """Command dispatcher of the port: ``python -m thrifty_tpu_torch.cli <command>``.
 
 Mirrors ``thrifty_tpu.cli`` with the commands ported so far, lazily
-importing each command module.
+importing each command module.  ``identify``, ``match`` and ``tdoa`` are
+the JAX package's numpy modules (they import no jax); ``pos`` is the
+port's, for its batched solver.
 """
 
 from __future__ import annotations
@@ -17,6 +19,12 @@ Receiver commands:
     capture           Carrier-gate a raw I/Q stream into a .card archive
     detect            Detect positioning signals, estimate SoA (batched, GPU)
 
+Server commands:
+    identify          Merge .toad files, identify transmitter IDs, dedup
+    match             Match detections across receivers
+    tdoa              Estimate TDOAs using beacon clock sync
+    pos               Estimate positions from TDOAs (--batched: GPU solver)
+
 Use 'python -m thrifty_tpu_torch.cli help <command>' for a command's
 arguments.  Commands not listed here run on the JAX package
 (python -m thrifty_tpu.cli)."""
@@ -24,6 +32,10 @@ arguments.  Commands not listed here run on the JAX package
 COMMANDS = {
     "capture": "thrifty_tpu_torch.pipeline.capture",
     "detect": "thrifty_tpu_torch.pipeline.detect",
+    "identify": "thrifty_tpu.pipeline.identify",
+    "match": "thrifty_tpu.pipeline.matchmaker",
+    "tdoa": "thrifty_tpu.pipeline.tdoa",
+    "pos": "thrifty_tpu_torch.pipeline.pos",
 }
 
 

@@ -7,8 +7,12 @@ reduction's peak and energy into the noise estimate and threshold here
 (reference thrifty/carrier_detect.py:61-115, fastcard/cardet.c:7-41):
 
   noise_rms  = sqrt((sum(mag^2) - 2*peak^2) / (N - 1))
-  threshold  = sqrt(c + s*noise_rms^2)
+  threshold  = sqrt(c + s*noise_rms^2 + d*var(mag))
   detected   = peak > threshold
+
+The carrier peak filter (:func:`detect_peak_filtered`) searches the
+argmax of a FIR-filtered magnitude window, which the power/peak
+reduction cannot do; it runs as torch ops on the detector's device.
 """
 
 from __future__ import annotations
@@ -68,3 +72,57 @@ def noise_and_threshold_sq(energy: torch.Tensor, peak_power: torch.Tensor,
     thresh_sq = c + s * torch.where(noise_var < 0.0, noise_var,
                                     torch.square(noise_rms))
     return noise_rms, thresh_sq
+
+
+def apply_peak_filter(fft_mag: torch.Tensor, weights):
+    """Matched-filter the magnitude spectrum with peak-shaped weights.
+
+    ``filtered[k] = sqrt(sum_j w[j]^2 * mag[k - (W-1) + j]^2)``: a causal
+    energy-domain FIR with zero initial conditions along the last axis
+    (reference thrifty/carrier_detect.py:128-135, JAX
+    ``carrier.apply_peak_filter``).  Returns (filtered, delay), where
+    ``delay`` realigns the argmax to the true peak position.
+    """
+    weights = np.asarray(weights, dtype=np.float64)
+    delay = len(weights) - int(np.argmax(weights)) - 1
+    coeffs = (weights ** 2).astype(np.float32)
+    power = torch.square(fft_mag)
+    k = power.shape[-1]
+    padded = torch.nn.functional.pad(power, (len(weights) - 1, 0))
+    acc = None
+    for s, coeff in enumerate(coeffs):
+        term = float(coeff) * padded[..., s:s + k]
+        acc = term if acc is None else acc + term
+    return torch.sqrt(acc), delay
+
+
+def detect_peak_filtered(fft_mag: torch.Tensor, weights,
+                         selection: torch.Tensor, thresh_coeffs):
+    """Carrier detection with the peak filter, on |FFT| [B, N] (the
+    peak-filter branch of JAX ``carrier.detect``, carrier.py:136-170).
+
+    The FIR runs over the window's bins in window order (``selection``,
+    int64 on the magnitudes' device, so a window crossing the DC wrap
+    sees its circular neighbours and its first W-1 bins the start-up
+    transient), the argmax spans every filter output, and the peak index
+    is reduced mod N: it may fall up to ``delay`` bins below the window
+    start.  Noise from the unfiltered spectrum energy; with a stddev
+    term d the threshold adds d*var(|FFT|) over all N bins.
+
+    Returns (detected, peak_idx int32, peak_mag, noise_rms).
+    """
+    n = fft_mag.shape[-1]
+    filtered, delay = apply_peak_filter(
+        fft_mag.index_select(-1, selection), weights)
+    filt_idx = torch.argmax(filtered, dim=-1)
+    peak_mag = torch.gather(filtered, -1, filt_idx[..., None])[..., 0]
+    peak_idx = torch.remainder(filt_idx - delay + selection[0], n).to(
+        torch.int32)
+    energy = torch.sum(torch.square(fft_mag), dim=-1)
+    noise, thresh_sq = noise_and_threshold_sq(
+        energy, torch.square(peak_mag), n, thresh_coeffs)
+    if thresh_coeffs[2]:
+        thresh_sq = thresh_sq + thresh_coeffs[2] * torch.var(
+            fft_mag, dim=-1, correction=0)
+    detected = peak_mag > torch.sqrt(torch.clamp(thresh_sq, min=0.0))
+    return detected, peak_idx, peak_mag, noise

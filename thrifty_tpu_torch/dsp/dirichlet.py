@@ -8,12 +8,18 @@ reference fits (A, delta) per block with scipy's curve_fit
 damped Gauss-Newton steps with an analytic Jacobian, run on the whole
 batch at once: a handful of [B, width] element-wise ops and a
 closed-form 2x2 solve per step.
+
+The other carrier interpolators (parabolic, gaussian, cosine, polyfit)
+are closed forms on the same gathered neighbourhood, and
+:func:`dirichlet_weights` shapes the carrier peak filter.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from thrifty_tpu_torch.dsp.xcorr import guard_denominator
 
 
 def dirichlet_kernel(x: torch.Tensor, block_len: int, carrier_len: int):
@@ -99,6 +105,22 @@ def make_dirichlet_interpolator(block_len: int, carrier_len: int,
     return interpolate
 
 
+def dirichlet_weights(filter_len: int, block_len: int,
+                      carrier_len: int) -> np.ndarray:
+    """Unit-energy Dirichlet-shaped weights for the carrier peak filter,
+    float64 numpy (JAX ``dirichlet_weights`` on its numpy branch, term
+    for term, so the weights are bit-equal)."""
+    x = np.arange(-(filter_len // 2), filter_len // 2 + 1)
+    n, w = block_len, carrier_len
+    a = np.pi / n
+    num = np.sin(a * w * x)
+    den = np.sin(a * x)
+    taylor = 1.0 - (a * a) * x * x * (w * w - 1.0) / 6.0
+    safe_den = np.where(np.abs(x) < 1e-2, 1.0, den)
+    coeffs = np.where(np.abs(x) < 1e-2, taylor, num / (w * safe_den))
+    return coeffs / np.sqrt(np.sum(coeffs**2))
+
+
 def parabolic_interpolate(values: torch.Tensor, clip=None) -> torch.Tensor:
     """Batched 3-point parabolic sub-bin interpolation.
 
@@ -109,10 +131,57 @@ def parabolic_interpolate(values: torch.Tensor, clip=None) -> torch.Tensor:
     (fastdet/corr_detector.cpp:88-101), the Python reference does not.
     """
     a, b, c = values[..., 0], values[..., 1], values[..., 2]
-    den = 4.0 * b - 2.0 * a - 2.0 * c
-    tiny = torch.where(den < 0.0, -1e-30, 1e-30)
-    den = torch.where(torch.abs(den) < 1e-30, tiny, den)
-    offset = (c - a) / den
+    offset = (c - a) / guard_denominator(4.0 * b - 2.0 * a - 2.0 * c)
     if clip is not None:
         offset = torch.clamp(offset, -clip, clip)
     return offset
+
+
+def gaussian_interpolate(values: torch.Tensor, clip=None) -> torch.Tensor:
+    """Batched 3-point Gaussian (log-parabolic) sub-bin interpolation:
+    (ln c - ln a) / (4 ln b - 2 ln a - 2 ln c) on ``values`` [..., 3]
+    (reference thrifty/experimental/carrier_interpolators.py:48-54).
+    Not shared with ``xcorr.gaussian_interpolate``: the carrier form has
+    no bounds mask (bins wrap) and a different scale."""
+    y = torch.clamp(values, min=1e-30)
+    la, lb, lc = torch.log(y[..., 0]), torch.log(y[..., 1]), \
+        torch.log(y[..., 2])
+    offset = (lc - la) / guard_denominator(4.0 * lb - 2.0 * la - 2.0 * lc)
+    if clip is not None:
+        offset = torch.clamp(offset, -clip, clip)
+    return offset
+
+
+def cosine_interpolate(values: torch.Tensor) -> torch.Tensor:
+    """Batched 3-point cosine-fit sub-bin interpolation through y_k =
+    A cos(w k + theta) (reference thrifty/experimental/
+    carrier_interpolators.py:84-93); 0 where (a + c) / 2b > 1, the
+    reference's guard."""
+    a, b, c = values[..., 0], values[..., 1], values[..., 2]
+    b = torch.clamp(b, min=1e-30)
+    cos_w = (a + c) / (2.0 * b)
+    w = torch.arccos(torch.clamp(cos_w, -0.999999, 0.999999))
+    sin_w = torch.where(torch.sin(w) == 0, 1e-30, torch.sin(w))
+    theta = torch.atan((a - c) / (2.0 * b * sin_w))
+    offset = -theta / torch.where(w == 0, 1e-30, w)
+    return torch.where(cos_w <= 1.0, offset, 0.0)
+
+
+def make_polyfit_interpolator(width: int):
+    """Batched quadratic least-squares sub-bin interpolation over
+    ``width+1`` points (reference thrifty/carrier_sync.py:207-219): a
+    projection onto the pseudo-inverse of the [x^2, x, 1] Vandermonde
+    matrix, built once in float64 and applied in the values' dtype.
+
+    Returns ``interp(values[..., width+1]) -> offset``.
+    """
+    xs = np.arange(-(width // 2), width // 2 + 1).astype(np.float64)
+    pinv = np.linalg.pinv(np.stack([xs**2, xs, np.ones_like(xs)], axis=1))
+
+    def interpolate(values: torch.Tensor) -> torch.Tensor:
+        p = torch.as_tensor(pinv, dtype=values.dtype, device=values.device)
+        # Element-wise product and sum (no matmul: no TF32 path at all).
+        coeffs = torch.sum(values[..., None, :] * p, dim=-1)
+        return -coeffs[..., 1] / guard_denominator(coeffs[..., 0]) / 2.0
+
+    return interpolate

@@ -16,8 +16,10 @@ the hit rows it archives.
 
 Without ``--raw-in``/``--rtl-tcp``/``--rtlsdr`` an external SDR capture
 binary is spawned instead (``--capture-cmd``, reference
-thrifty/fastcard_capture.py:35-93).  Not ported: a stddev threshold
-term (raises ``ValueError``) and the JAX package's windowed-DFT gate.
+thrifty/fastcard_capture.py:35-93).  A stddev threshold term d*var(|X|)
+over all N bins comes from the same launch (the reduction's magnitude
+sums with an all-true stats mask).  Not ported: the JAX package's
+windowed-DFT gate.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from thrifty_tpu.config.parsers import normalize_freq_range
 from thrifty_tpu.io import card as card_io
 from thrifty_tpu.io.stream import StreamPump
 from thrifty_tpu_torch.device import DEVICES, resolve_device
-from thrifty_tpu_torch.dsp import carrier, iq, power_peak, unfold
+from thrifty_tpu_torch.dsp import carrier, iq, power_peak, unfold, \
+    xcorr
 from thrifty_tpu_torch.dsp import fft as fft_mod
 from thrifty_tpu_torch.pipeline.host import PinnedUpload, open_source
 
@@ -48,31 +51,36 @@ class CarrierGate:
     Per block (fastcard/cardet.c:7-41 semantics): FFT, windowed argmax
     of the power and the spectrum energy in one power/peak reduction,
     then the signed-variance noise and threshold of
-    ``carrier.noise_and_threshold_sq``.  Returns tensors on the gate's
-    device: (detected bool, argmax int32, magnitude, noise, threshold).
+    ``carrier.noise_and_threshold_sq``; a stddev term d adds
+    d*var(|X|) from the same launch's magnitude sums (JAX computes
+    ``jnp.var(mag)``, thrifty_tpu/pipeline/capture.py:90-99).  Returns
+    tensors on the gate's device: (detected bool, argmax int32,
+    magnitude, noise, threshold).
     """
 
     def __init__(self, block_len, carrier_window, carrier_thresh,
                  history_len=None, device="cpu"):
-        if carrier_thresh[2]:
-            raise ValueError(
-                "carrier_thresh={!r} is not implemented by "
-                "thrifty_tpu_torch yet (supported: stddev term d == 0); "
-                "use thrifty_tpu for it".format(tuple(carrier_thresh)))
         self.block_len = block_len
         self.history_len = history_len  # needed for gate_stream only
         self.device = torch.device(device)
         self._mask = power_peak.Mask(
             carrier.window_mask(carrier_window, block_len), self.device)
         self._thresh = tuple(carrier_thresh)
+        self._stats = (power_peak.Mask(np.ones(block_len, bool), self.device)
+                       if self._thresh[2] else None)
         self._stream = None
 
     def _detect_blocks(self, blocks):
         fft = fft_mod.fft(blocks)
-        idx, peak_pow, energy = power_peak.fused_power_peak(fft, self._mask)
+        out = power_peak.fused_power_peak(fft, self._mask,
+                                          stats_mask=self._stats)
+        idx, peak_pow, energy = out[:3]
         mag = torch.sqrt(peak_pow)
         noise, thresh_sq = carrier.noise_and_threshold_sq(
             energy, peak_pow, self.block_len, self._thresh)
+        if self._stats is not None:
+            thresh_sq = thresh_sq + self._thresh[2] * xcorr.var_from_stats(
+                out[3], out[4], self.block_len)
         # Report the DECISION threshold, from the signed variance (an
         # ultra-strong carrier drives it negative; rebuilding it from
         # the clamped noise would print a threshold above the magnitude

@@ -14,12 +14,14 @@ Inputs: a .card file, a raw uint8 I/Q stream (``--raw``, host unfold,
 or ``--device-unfold``: only the stream's new bytes are uploaded and
 the overlap-save rows are built on the device), or a live SDR
 (``--rtl-tcp``, ``--rtlsdr``).  ``--gate-capacity`` runs the
-correlation on the carrier-positive blocks only; ``--sync-mode
-integer`` (config key) gives fastdet's numerics.
-
-Options of the JAX CLI not implemented by the port yet (the carrier
-peak filter, template banks and ``--emit-txid``, the other
-interpolators, the TPU transform knobs) are not offered here.
+correlation on the carrier-positive blocks only; the config key
+``sync_mode`` picks fractional, integer (fastdet's numerics) or
+preshift sync.  ``--corr-interp``, ``--carrier-interp`` and
+``--peak-filter`` are the JAX CLI's; a 2-D [T, L] template file is a
+code-division bank, and ``--emit-txid`` writes its winning template as
+the txid.  The JAX CLI's TPU knobs (``--pallas``, ``--fft-impl``,
+``--fft-precision``, ``--carrier-fast``, ``--carrier-precision``,
+``--ramp-fast``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -77,13 +79,15 @@ class SummaryFormatter:
 
 
 def detect_batches(detector, batches, batch_size, rxid=-1,
-                   summary=None, summary_out=None, card_out=None,
+                   summary=None, summary_out=None,
+                   txid_from_template=False, card_out=None,
                    device_unfold=False):
     """Run the detector over an iterator of (ts, idx, raw) batches.
 
     Yields detection record arrays (toad.DETECTION_DTYPE) per batch.
     Batches shorter than ``batch_size`` are padded with byte 128 (zero
-    signal) and the padded rows are dropped.  ``card_out``: optional
+    signal) and the padded rows are dropped.  ``txid_from_template``
+    writes a bank's winning template as the txid.  ``card_out``: optional
     stream teeing the raw bytes of corr-detected blocks as .card lines
     (reference fastdet/fastdet.cpp:210-219).
     ``device_unfold``: batches carry CONTIGUOUS new stream bytes
@@ -114,7 +118,9 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
             keep = out["detected"]
             card.write_card(card_out, ts[keep], idx[keep], raw[:n][keep])
             card_out.flush()
-        return toad.from_detector_output(ts, idx, soa, out, rxid=rxid)
+        return toad.from_detector_output(
+            ts, idx, soa, out, rxid=rxid,
+            txid_from_template=txid_from_template)
 
     try:
         for ts, idx, raw in batches:
@@ -214,6 +220,29 @@ def _main(argv=None):
     parser.add_argument("--card-out", type=str, default=None,
                         help="tee corr-detected blocks to this .card file "
                              "(the fastdet-style sparse capture archive)")
+    parser.add_argument("--corr-interp", type=str, default="gaussian",
+                        choices=["gaussian", "parabolic", "cosine",
+                                 "autocorr", "none", "maximise"],
+                        help="sub-sample correlation-peak interpolator "
+                             "(the reference's experimental set, "
+                             "batched) [default: gaussian]")
+    parser.add_argument("--carrier-interp", type=str, default="auto",
+                        choices=["auto", "dirichlet", "parabolic",
+                                 "polyfit", "gaussian", "cosine", "none"],
+                        help="sub-bin carrier interpolator [default: "
+                             "auto = dirichlet, or parabolic in integer "
+                             "sync mode]")
+    parser.add_argument("--peak-filter", type=int, default=0,
+                        metavar="LEN",
+                        help="Dirichlet matched filter length for the "
+                             "carrier peak search (-1 = auto width, "
+                             "0 = off; the filtered search runs as torch "
+                             "ops, not the power/peak kernel) "
+                             "[default: 0]")
+    parser.add_argument("--emit-txid", action="store_true",
+                        help="write .toads lines with txid taken from the "
+                             "winning template of a template bank (the "
+                             "template file must hold a [T, L] array)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=list(DEVICES),
                         help="where the detector runs; 'cuda' fails when "
@@ -243,8 +272,11 @@ def _main(argv=None):
             parser.error("--skip filters host-side rows; incompatible "
                          "with --device-unfold")
 
-    device = resolve_device(args.device)
     template = tpl_io.load_template(config.template)
+    if args.emit_txid and template.ndim != 2:
+        parser.error("--emit-txid requires a template bank "
+                     "(a 2-D [T, L] .npy array)")
+    device = resolve_device(args.device)
     bin_freq = config.sample_rate / config.block_size
     window = normalize_freq_range(config.carrier_window, bin_freq)
 
@@ -255,6 +287,9 @@ def _main(argv=None):
         carrier_window=window,
         corr_thresh=config.corr_threshold,
         sync_mode=config.sync_mode,
+        corr_interp=args.corr_interp,
+        carrier_interp=args.carrier_interp,
+        peak_filter_len=args.peak_filter,
         gate_capacity=args.gate_capacity,
     ), device=device)
 
@@ -330,10 +365,11 @@ def _main(argv=None):
         for records in detect_batches(
                 detector, counted(batches), config.batch_size,
                 rxid=config.rxid, summary=summary, summary_out=info_out,
-                card_out=card_out, device_unfold=args.device_unfold):
+                txid_from_template=args.emit_txid, card_out=card_out,
+                device_unfold=args.device_unfold):
             num += len(records)
             if out_stream is not None:
-                toad.save(out_stream, records)
+                toad.save(out_stream, records, with_txid=args.emit_txid)
                 out_stream.flush()
     except KeyboardInterrupt:
         print("interrupted; output flushed", file=sys.stderr)

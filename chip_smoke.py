@@ -40,12 +40,10 @@ the port on the card:
   with the card's name and power limit.
 
 Every phase raises on failure, so a non-zero exit means a failed phase;
-without a CUDA card it fails at once.  JAX is never imported.  The one
-exception to "nothing of the JAX package" is its numpy host modules,
-which the port itself reuses (``io.card`` to write and count captures,
-``sim`` and ``dsp.template`` to synthesise them, ``pipeline.tdoa`` for
-TDOA groups); they leave ``jax`` unloaded, and the script checks that at
-its end.
+without a CUDA card it fails at once.  Neither JAX nor anything of the
+JAX package is imported: captures are written and synthesised with the
+port's own host modules (``io.card``, ``sim``, ``dsp.template``,
+``pipeline.tdoa``), and the script checks ``sys.modules`` at its end.
 
 Output: lines for each phase, then a JSON line describing each kernel
 (with the paths that launched it and their launches per batch), the
@@ -53,9 +51,11 @@ card's name and power limit as ``nvidia-smi`` reports them, and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -103,36 +103,132 @@ def card_phase():
     return card
 
 
-def build_phase():
+# A control for the power_peak timings: a kernel that does nothing,
+# launched as power_peak launches (cudaLaunchKernelEx, 512 threads, a
+# cluster attribute only when it splits a row), so its CUDA-event time is
+# the launch's and the events' own cost on the device.
+LAUNCH_PROBE = r"""
+#include <cuda_runtime.h>
+
+__global__ void __launch_bounds__(512) empty_kernel() {}
+
+extern "C" int tt_empty(long long ctas, int cluster, void* stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
+  config.blockDim = dim3(512, 1, 1);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&config, empty_kernel);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+"""
+
+
+def build_phase(others=()):
+    """Build every kernel source, the native host engine, the launch probe
+    and the other power_peak sources ``others``, all at once; print each
+    kernel instance's registers and spills and fail on any spill.
+    Returns {label: library path} of the probe and the other sources."""
     phase("build")
+    from concurrent.futures import ThreadPoolExecutor
+
     from thrifty_tpu_torch import _build
 
-    for name in _build.sources():
-        path, seconds, log = _build.build(name, force=True)
-        _build.load(name)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    probe = os.path.join(_build.BUILD_DIR, "launch_probe.cu")
+    with open(probe, "w") as f:
+        f.write(LAUNCH_PROBE)
+    jobs = {name: (name, None) for name in _build.sources()}
+    jobs["launch_probe"] = ("launch_probe", probe)
+    extra = {source_label(path): path for path in others}
+    for label, path in extra.items():
+        check(label not in jobs and label not in ("kernel", "plain"),
+              "{}: label {!r} is taken".format(path, label))
+        jobs[label] = ("power_peak_" + label, os.path.abspath(path))
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        native = pool.submit(native_engine)
+        futures = {key: pool.submit(_build.build, name, True, source)
+                   for key, (name, source) in jobs.items()}
+        built = {key: f.result() for key, f in futures.items()}
+        native_status = native.result()
+    for key, (path, seconds, log) in built.items():
+        if key in _build.sources():
+            _build.load(key)
         print("built {} in {:.2f} s -> {}".format(
-            name, seconds, os.path.relpath(path, ROOT)))
+            key, seconds, os.path.relpath(path, ROOT)))
+        entry = ""
         for line in log.splitlines():
+            named = re.search(r"Compiling entry function '([^']+)'", line)
+            if named:
+                entry = instance_name(named.group(1))
             if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+                print("  {}: {}".format(entry, line.strip()))
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            check(not spills or spills.groups() == ("0", "0"),
+                  "{}: the kernel spills: {}".format(key, line.strip()))
+    print("native host engine (thrifty_tpu_torch/native, g++): {}".format(
+        native_status))
+    return {label: built[label][0]
+            for label in ["launch_probe"] + list(extra)}
+
+
+def source_label(path):
+    """The label of another power_peak source: its file name without
+    power_peak_ and .cu."""
+    name = os.path.splitext(os.path.basename(path))[0]
+    return name[len("power_peak_"):] if name.startswith("power_peak_") \
+        else name
+
+
+def instance_name(mangled):
+    """power_peak_kernel<interleaved, stats, vec> from its mangled name."""
+    flags = re.search(r"power_peak_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+    if not flags:
+        return mangled
+    return "power_peak_kernel<{}>".format(", ".join(
+        "{}={}".format(k, "true" if v == "1" else "false")
+        for k, v in zip(("interleaved", "stats", "vec"), flags.groups())))
+
+
+def native_engine():
+    """Build and load the port's native host I/O engine; 'loaded' or
+    why not (the host modules then take their numpy paths)."""
+    try:
+        from thrifty_tpu_torch import native
+    except ImportError as e:
+        return "not loaded ({})".format(e)
+    return "loaded ({})".format(os.path.relpath(native.LIBRARY_PATH, ROOT))
 
 
 TIMINGS = {
     "cold": "device time, L2 scrubbed before each call",
+    "cold_clean": "device time, L2 refilled with other, clean data before "
+                  "each call (a 256 MB read)",
     "warm": "device time, input read by the call before",
     "call": "call time, host launch included",
 }
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 
 
 def median_ms(fn, mode, scrub, reps=25, warmup=10):
     """Median of per-call CUDA-event times (``mode`` a key of TIMINGS).
 
-    "cold" and "warm" queue each call behind a ~1 ms device sleep, so
-    the start event fires only after the host has queued the call and
-    the interval is the device's time alone; "cold" also overwrites
-    ``scrub`` (larger than the 50 MB L2) after the sleep, so the input
-    comes from HBM.  "call" has neither, so the interval also holds the
-    host's launch latency (the card idles while the wrapper runs).
+    "cold", "cold_clean" and "warm" queue each call behind a ~1 ms device
+    sleep, so the start event fires only after the host has queued the
+    call and the interval is the device's time alone (the launch's own
+    latency on the device included); "cold" also overwrites ``scrub``
+    (larger than the 50 MB L2) after the sleep, so the input comes from
+    HBM and the call also writes the scrub's dirty lines back as it
+    evicts them; "cold_clean" reads ``scrub`` instead, so the L2 holds
+    only clean lines.  "call" has no sleep, so the interval also holds
+    the host's launch latency (the card idles while the wrapper runs).
     """
     for _ in range(warmup):
         fn()
@@ -145,6 +241,8 @@ def median_ms(fn, mode, scrub, reps=25, warmup=10):
             torch.cuda._sleep(2_000_000)
         if mode == "cold":
             scrub.fill_(1.0)
+        elif mode == "cold_clean":
+            torch.sum(scrub)
         start.record()
         fn()
         end.record()
@@ -167,6 +265,10 @@ def held_against_plain(x, mask, stats_mask=None, layout="interleaved",
         x.real, x.imag, torch.from_numpy(host).to(dev),
         None if stats_mask is None else torch.from_numpy(stats_mask).to(dev))
     torch.cuda.synchronize()
+    return compare_outputs(got, ref, what)
+
+
+def compare_outputs(got, ref, what):
     got = [g.cpu().numpy() for g in got]
     ref = [r.cpu().numpy() for r in ref]
     check(np.array_equal(got[0], ref[0]), "idx differs: " + what)
@@ -174,16 +276,145 @@ def held_against_plain(x, mask, stats_mask=None, layout="interleaved",
           "peak not bit-equal: " + what)
     max_rel = 0.0
     for g, r in zip(got[2:], ref[2:]):
-        rel = float(np.max(np.abs(g - r) / np.abs(r)))
+        nan = np.isnan(r)
+        check(np.array_equal(nan, np.isnan(g)), "sum NaNs differ: " + what)
+        rel = float(np.max(np.abs(g - r)[~nan] / np.maximum(
+            np.abs(r)[~nan], np.finfo(np.float32).tiny), initial=0.0))
         check(rel <= SUM_RTOL, "sum off by rel {:.3g}: {}".format(rel, what))
         max_rel = max(max_rel, rel)
+    fin = np.isfinite(ref[1])
     max_abs = max(float(np.max(np.abs(got[0].astype(np.int64) - ref[0]))),
-                  float(np.max(np.abs(got[1] - ref[1]))))
+                  float(np.max(np.abs(got[1] - ref[1])[fin], initial=0.0)))
     return got, max_abs, max_rel
 
 
-def kernel_phase(card, blocks_np, template):
-    """power_peak kernel vs its plain version at the detect path's shapes."""
+def boundary_rows(rows, n, sms, seed):
+    """[rows, n] complex64 with maxima on the kernel's slice boundaries: a
+    peak in the last column of a slice, equal powers at the last column of
+    slice k and the first of slice k+1 (the earliest must win), a NaN in a
+    later slice; a mask with a masked-out head."""
+    from thrifty_tpu_torch.dsp import power_peak as pp
+
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(-0.02, 0.02, (rows, n))
+         + 1j * rng.uniform(-0.02, 0.02, (rows, n))).astype(np.complex64)
+    bounds = pp.slice_bounds(n, rows, sms)
+    last = len(bounds) - 1
+    for r in range(rows):
+        k = r % len(bounds)
+        if r % 3 == 0:
+            x[r, bounds[k][1] - 1] = 5.0 + 1.0j
+        elif r % 3 == 1 and last:
+            k = min(k, last - 1)
+            x[r, bounds[k][1] - 1] = 3.0 + 4.0j
+            x[r, bounds[k + 1][0]] = 4.0 + 3.0j
+        elif r % 3 == 2:
+            x[r, n - 1 - r % min(n, 3)] = np.nan
+    mask = np.ones(n, dtype=bool)
+    if n >= 100:
+        mask[1:n // 50] = False
+    return x, mask
+
+
+def first_wrapper(lib, x, mask):
+    """The power_peak library through the host work of the port's first
+    wrapper (interleaved, no stats): one output tensor each and a device
+    context per call."""
+    b, n = x.shape
+    dev = x.device
+    outs = [torch.empty(b, dtype=torch.int32, device=dev)] + [
+        torch.empty(b, dtype=torch.float32, device=dev) for _ in range(2)]
+    y = torch.view_as_real(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tt_power_peak(
+            y.data_ptr(), y.data_ptr() + 4, mask.flags.data_ptr(), None,
+            *[o.data_ptr() for o in outs], None, None,
+            b, n, 2 * x.stride(0), 2, 1, stream)
+    check(err == 0, "power_peak launch failed ({})".format(err))
+    return tuple(outs)
+
+
+def lib_call(lib, x, mask, smask=None, layout="interleaved"):
+    """A power_peak library other than the port's (the same C interface)
+    on the operands the port's wrapper passes: (idx, peak, total[,
+    stat_pow, stat_mag])."""
+    from thrifty_tpu_torch.dsp import power_peak as pp
+
+    b, n = x.shape
+    out = torch.empty((3 if smask is None else 5, b), dtype=torch.float32,
+                      device=x.device)
+    re_ptr, im_ptr, row_stride, elem_stride, inter, _keep = pp._operands(
+        x, layout)
+    base, step = out.data_ptr(), 4 * b
+    stats = smask is not None
+    err = lib.tt_power_peak(
+        re_ptr, im_ptr, mask.flags.data_ptr(),
+        smask.flags.data_ptr() if stats else None, base, base + step,
+        base + 2 * step, base + 3 * step if stats else None,
+        base + 4 * step if stats else None, b, n, row_stride, elem_stride,
+        inter, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "power_peak launch failed ({})".format(err))
+    rows = out.unbind(0)
+    return (rows[0].view(torch.int32),) + rows[1:]
+
+
+def load_power_peak(path):
+    """A built power_peak library with its C function typed."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.tt_power_peak.restype = ctypes.c_int
+    lib.tt_power_peak.argtypes = [p] * 9 + [i64] * 4 + [ctypes.c_int, p]
+    return lib
+
+
+def launch_floor(probe_path, card, scrub):
+    """CUDA-event times of the empty launch probe at power_peak's grids:
+    256 CTAs (one row each) and one row split over a cluster of 8."""
+    import ctypes
+
+    lib = ctypes.CDLL(probe_path)
+    lib.tt_empty.restype = ctypes.c_int
+    lib.tt_empty.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_void_p]
+
+    def run(ctas, cluster):
+        err = lib.tt_empty(ctas, cluster,
+                           torch.cuda.current_stream().cuda_stream)
+        check(err == 0, "empty kernel launch failed ({})".format(err))
+
+    floors = {}
+    for ctas, cluster in ((256, 1), (8, 8)):
+        floors[ctas, cluster] = {
+            mode: median_ms(lambda: run(ctas, cluster), mode, scrub)
+            for mode in ("cold", "warm")}
+        print("empty kernel, {} CTAs of 512 threads, cluster {} "
+              "(cudaLaunchKernelEx as power_peak launches): {}; {}".format(
+                  ctas, cluster, ", ".join(
+                      "{} {:.4f} ms".format(m, t)
+                      for m, t in floors[ctas, cluster].items()), card))
+    return floors
+
+
+def kernel_bound_ms(rows, n, stats=False):
+    """The least time for one call on the card: each input byte read once
+    (complex64 rows, the uint8 masks), each output written once, over
+    HBM's 3.35 TB/s (the flops, ~4 per sample, take ~1/30 of that at
+    67 TFLOP/s float32)."""
+    nbytes = rows * n * 8 + n * (2 if stats else 1) \
+        + rows * 4 * (5 if stats else 3)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def kernel_phase(card, blocks_np, template, probe, extra=None):
+    """power_peak kernel vs its plain version at the detect path's shapes,
+    the edge cases of its launch plan, and its time at the main path's,
+    the gated correlation's and the bank's shapes, beside the other
+    power_peak libraries in ``extra`` ({label: library path}: earlier
+    kernels or other designs with the same C interface) and the empty
+    launch ``probe``."""
     phase("kernel vs plain")
     from thrifty_tpu_torch.dsp import power_peak as pp
     from thrifty_tpu_torch.dsp import xcorr
@@ -195,6 +426,10 @@ def kernel_phase(card, blocks_np, template):
     spec = torch.fft.fft(blocks)
     tconj = torch.from_numpy(xcorr.template_fft_conj(template, n)).to(dev)
     corr = torch.fft.ifft(spec * tconj)
+    bank_conj = torch.from_numpy(xcorr.template_fft_conj(code_bank(),
+                                                         n)).to(dev)
+    bank_rows = torch.fft.ifft(spec[:, None] * bank_conj).reshape(-1, n)
+    gated = corr[:BATCH // 2].clone()
     start, stop = xcorr.corr_window(n, 4920, len(template))
     corr_mask = np.zeros(n, dtype=bool)
     corr_mask[start:stop] = True
@@ -213,60 +448,221 @@ def kernel_phase(card, blocks_np, template):
     cases = [
         ("carrier", spec, window_mask((7, 110), n)),
         ("corr", corr, corr_mask),
+        ("corr_gated_128", gated, corr_mask),
+        ("bank_768", bank_rows, corr_mask),
         ("last_column", last, np.ones(n, dtype=bool)),
         ("ragged", torch.from_numpy(ragged).to(dev),
          np.ones(1000, dtype=bool)),
         ("ties", torch.from_numpy(ties).to(dev),
          np.ones(2048, dtype=bool)),
     ]
+    # The launch plan's edges: n from 1 to past 8 slices of 2048, rows
+    # from 1 to a bank's 768, maxima and NaNs on slice boundaries, and an
+    # input 8 bytes past a 16-byte boundary (the scalar path).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows, m in ((3, 1), (3, 7), (3, 2049), (3, 16385), (1, 16384),
+                    (32, 16384), (64, 16384), (128, 16384), (768, 16384)):
+        x, mask = boundary_rows(rows, m, sms, seed=rows + m)
+        cases.append(("boundaries_{}x{}".format(rows, m),
+                      torch.from_numpy(x).to(dev), mask))
+    x, mask = boundary_rows(6, n, sms, seed=3)
+    buf = torch.empty(6 * n + 1, dtype=torch.complex64, device=dev)
+    misaligned = buf[1:].view(6, n)
+    misaligned.copy_(torch.from_numpy(x))
+    check(misaligned.data_ptr() % 16 == 8, "misaligned view is aligned")
+    cases.append(("misaligned_8", misaligned, mask))
+
     max_abs = 0.0
     max_rel = 0.0
+    plans = set()
     for name, x, mask in cases:
+        m = x.shape[1]
+        sm_full = stats[:m] if m == n else np.arange(m) < (3 * m) // 4
         for layout in ("interleaved", "planes"):
-            for sm in (None, stats[:x.shape[1]]):
+            plan = pp.kernel_plan(x, mask, layout=layout)
+            want = pp.cluster_plan(m, x.shape[0], sms)
+            check(plan[:2] == want and plan[3] == sms,
+                  "{}: kernel plan {} != {}".format(name, plan, want))
+            plans.add((x.shape[0], m, layout, plan[:3]))
+            for sm in (None, sm_full):
                 what = "{} {} stats={}".format(name, layout, sm is not None)
                 got, err, rel = held_against_plain(x, mask, sm, layout, what)
                 max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
+                again = pp.fused_power_peak(x, mask, stats_mask=sm,
+                                            layout=layout)
+                check(all(np.array_equal(g.view(np.uint32),
+                                         a.cpu().numpy().view(np.uint32))
+                          for g, a in zip(got[1:], again[1:])),
+                      "two launches differ: " + what)
                 if name == "ties":
                     check(np.all(got[0] == 300), "tie not earliest")
                 if name == "last_column":
                     check(np.all(got[0] == n - 1), "last column missed")
-    print("idx/peak bit-equal in {} comparisons; sums max rel err {:.3g} "
-          "(limit {:g})".format(len(cases) * 4, max_rel, SUM_RTOL))
+    check(not any(p[3][2] for p in plans if p[1] % 2 and p[2] ==
+                  "interleaved"), "odd n took the vector path")
+    print("idx/peak bit-equal in {} comparisons, sums within {:.3g} (limit "
+          "{:g}) and bit-equal between two launches; launch plans on {} "
+          "SMs (rows, n, layout, (CTAs per row, columns per CTA, 16-byte "
+          "loads)): {}".format(len(cases) * 4, max_rel, SUM_RTOL, sms,
+                               sorted(plans)))
+    extra = extra or {}
+    others = {label: load_power_peak(path) for label, path in extra.items()}
+    for label, lib in others.items():
+        for name, x, mask in cases:
+            m = x.shape[1]
+            mask_obj = pp.Mask(mask, dev)
+            for layout in ("interleaved", "planes"):
+                for sm in (None, np.arange(m) < (3 * m) // 4):
+                    sm_obj = None if sm is None else pp.Mask(
+                        sm, dev, allow_empty=True)
+                    got = lib_call(lib, x, mask_obj, sm_obj, layout)
+                    what = "{} {} {} stats={}".format(label, name, layout,
+                                                      sm is not None)
+                    ref = pp.fused_power_peak_reference(
+                        x.real, x.imag, mask_obj.bool,
+                        None if sm is None else sm_obj.bool)
+                    torch.cuda.synchronize()
+                    compare_outputs(got, ref, what)
+                    again = lib_call(lib, x, mask_obj, sm_obj, layout)
+                    check(all(torch.equal(g.view(torch.int32),
+                                          a.view(torch.int32))
+                              for g, a in zip(got[1:], again[1:])),
+                          "two launches differ: " + what)
+        print("{} ({}) is bit-equal to plain in idx/peak on every case "
+              "above, both layouts, with and without stats, and between "
+              "two launches".format(label, os.path.relpath(extra[label],
+                                                           ROOT)))
 
-    # Time the main path's call (the correlation, interleaved, no stats)
-    # in turns: plain, kernel, kernel, plain.
-    corr_bool = torch.from_numpy(corr_mask).to(dev)
+    # Time the correlation call (interleaved, no stats) at the main
+    # path's [256, N], the gated [128, N] and the bank's [768, N], in
+    # turns: plain, the other libraries, kernel, kernel, the others in
+    # reverse, plain.
     mask_obj = pp.Mask(corr_mask, dev)
-    runs = {"kernel": lambda: pp.fused_power_peak(corr, mask_obj),
-            "plain": lambda: pp.fused_power_peak_reference(
-                corr.real, corr.imag, corr_bool)}
+    stats_obj = pp.Mask(stats, dev, allow_empty=True)
     scrub = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
-    times = {}
-    for mode in TIMINGS:
-        for which in ("plain", "kernel", "kernel", "plain"):
-            times.setdefault((which, mode), []).append(
-                median_ms(runs[which], mode, scrub))
+    order = ("plain",) + tuple(others) + ("kernel", "kernel") \
+        + tuple(reversed(list(others))) + ("plain",)
+
+    def runs_for(x, sm=None):
+        runs = {"kernel": lambda: pp.fused_power_peak(x, mask_obj, sm),
+                "plain": lambda: pp.fused_power_peak_reference(
+                    x.real, x.imag, mask_obj.bool,
+                    None if sm is None else sm.bool)}
+        for label, lib in others.items():
+            runs[label] = lambda lib=lib: lib_call(lib, x, mask_obj, sm)
+        return runs
+
+    def time_turns(runs, modes, order):
+        times = {}
+        for mode in modes:
+            for which in order:
+                times.setdefault((which, mode), []).append(
+                    median_ms(runs[which], mode, scrub))
+        return times, {k: float(np.median(v)) for k, v in times.items()}
+
+    def report(title, runs, times, med, modes):
+        for mode in modes:
+            print("{}, {}: {}; each turn the median of 25 CUDA-event "
+                  "timings; {}".format(title, TIMINGS[mode], ", ".join(
+                      "{} {:.4f} ms (turns {})".format(
+                          which, med[which, mode], "/".join(
+                              "{:.4f}".format(t) for t in times[which, mode]))
+                      for which in runs), card))
+
+    results = {}
+    for label, x in (("main", corr), ("gated", gated), ("bank", bank_rows)):
+        runs = runs_for(x)
+        times, med = time_turns(runs, TIMINGS, order)
+        report("power_peak [{}, {}] complex64".format(x.shape[0], n), runs,
+               times, med, TIMINGS)
+        bound, nbytes = kernel_bound_ms(*x.shape)
+        for mode in ("cold", "cold_clean", "warm"):
+            print("bound [{}, {}]: {:.0f} bytes / 3.35 TB/s = {:.4f} ms; {} "
+                  "share of the bound: {}; {}".format(
+                      x.shape[0], n, nbytes, bound, mode, ", ".join(
+                          "{} {:.1%} ({:.0f} GB/s)".format(
+                              which, bound / med[which, mode],
+                              nbytes / 1e6 / med[which, mode])
+                          for which in runs), card))
+        results[label] = (med, bound)
+    # The stats instance at the main shape (the detect path with a stddev
+    # term: the correlation's first corr_len lags).
+    runs = runs_for(corr, stats_obj)
+    device_modes = ("cold", "cold_clean", "warm")
+    times, med = time_turns(runs, device_modes, order)
+    report("power_peak with stats [{}, {}] complex64".format(BATCH, n), runs,
+           times, med, device_modes)
+    bound, _ = kernel_bound_ms(BATCH, n, stats=True)
+    print("bound with stats [{}, {}]: {:.4f} ms; cold share: {}; {}".format(
+        BATCH, n, bound, ", ".join(
+            "{} {:.1%}".format(which, bound / med[which, "cold"])
+            for which in runs), card))
+    # The wrapper's host work: the port's wrapper against the first one's
+    # (three output tensors and a device context per call), both on this
+    # checkout's kernel: call time in 10 pairs, alternating which runs
+    # first, since the host's noise between turns is as large as the
+    # difference.
+    from thrifty_tpu_torch import _build
+
+    pp._library()
+    this_lib = _build.load("power_peak")
+    wrappers = {"wrapper": lambda: pp._launch(corr, mask_obj, None,
+                                              "interleaved"),
+                "first wrapper": lambda: first_wrapper(this_lib, corr,
+                                                       mask_obj)}
+    times = {which: [] for which in wrappers}
+    wins = 0
+    for i in range(10):
+        for which in (list(wrappers) if i % 2 == 0 else
+                      list(reversed(list(wrappers)))):
+            times[which].append(median_ms(wrappers[which], "call", scrub))
+        wins += times["wrapper"][-1] < times["first wrapper"][-1]
+    print("power_peak [{}, {}], this kernel through two wrappers, {}: {}; "
+          "the port's wrapper faster in {} of 10 pairs; each turn the "
+          "median of 25 CUDA-event timings; {}".format(
+              BATCH, n, TIMINGS["call"], ", ".join(
+                  "{} median {:.4f} ms (quartiles {:.4f}-{:.4f})".format(
+                      which, *np.percentile(t, [50, 25, 75]))
+                  for which, t in times.items()), wins, card))
+    # The planes layout (the port of the Pallas `_kernel`), on planes made
+    # beforehand: layout='planes' makes them from x first.
+    fn = pp._library()
+    re_p, im_p = corr.real.contiguous(), corr.imag.contiguous()
+    out = torch.empty((3, BATCH), dtype=torch.float32, device=dev)
+
+    def planes_kernel():
+        base, step = out.data_ptr(), 4 * BATCH
+        check(fn(re_p.data_ptr(), im_p.data_ptr(), mask_obj.flags.data_ptr(),
+                 None, base, base + step, base + 2 * step, None, None, BATCH,
+                 n, n, 1, 0, torch.cuda.current_stream().cuda_stream) == 0,
+              "planes launch failed")
+
+    planes = {"kernel": planes_kernel,
+              "plain": lambda: pp.fused_power_peak_reference(
+                  re_p, im_p, mask_obj.bool)}
+    planes_kernel()
+    compare_outputs((out[0].view(torch.int32), out[1], out[2]),
+                    planes["plain"](), "planes kernel")
+    times, med = time_turns(planes, device_modes,
+                            ("plain", "kernel", "kernel", "plain"))
+    report("power_peak planes [{}, {}] f32 x 2, the kernel alone".format(
+        BATCH, n), planes, times, med, device_modes)
+    tiny = corr[:1, :64].contiguous()
+    tiny_mask = pp.Mask(np.ones(64, dtype=bool), dev)
+    floor = {mode: median_ms(lambda: pp.fused_power_peak(tiny, tiny_mask),
+                             mode, scrub) for mode in TIMINGS}
+    print("floor: a [1, 64] call, {}; {}".format(", ".join(
+        "{} {:.4f} ms".format(mode, t) for mode, t in floor.items()), card))
+    launch_floor(probe, card, scrub)
     del scrub
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    ms, plain_ms = med["kernel", "cold"], med["plain", "cold"]
-    for mode, what in TIMINGS.items():
-        print("power_peak [{}, {}] complex64, {}: kernel {:.4f} ms (turns "
-              "{}), plain {:.4f} ms (turns {}); each turn the median of 25 "
-              "CUDA-event timings; {}".format(
-                  corr.shape[0], n, what, med["kernel", mode],
-                  "/".join("{:.4f}".format(t) for t in times["kernel", mode]),
-                  med["plain", mode],
-                  "/".join("{:.4f}".format(t) for t in times["plain", mode]),
-                  card))
-    mb = corr.numel() * 8 / 1e6
-    print("kernel reads {:.1f} MB: {:.0f} GB/s cold, {:.0f} GB/s warm; {}"
-          .format(mb, mb / ms, mb / med["kernel", "warm"], card))
+    med, bound = results["main"]
     return {"name": "power_peak", "route": "cuda",
             "source": "thrifty_tpu_torch/csrc/power_peak.cu",
             "replaces": "thrifty_tpu/dsp/pallas_kernels.py:163",
             "max_abs_err": max_abs, "sum_max_rel_err": max_rel,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": med["kernel", "cold"], "plain_ms": med["plain", "cold"],
+            "cold_clean_ms": med["kernel", "cold_clean"],
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
 def load_toad(path):
@@ -298,7 +694,7 @@ def common_args(device, template_path, rxid=0):
 
 def golden_phase(tmp):
     phase("golden slice")
-    from thrifty_tpu.io import card
+    from thrifty_tpu_torch.io import card
     from thrifty_tpu_torch.dsp import power_peak as pp
 
     tpl_path = os.path.join(INPUT, "template.npy")
@@ -320,7 +716,7 @@ def golden_phase(tmp):
 
 def full_size_phase(card_name, tmp, cap):
     phase("full-size slice")
-    from thrifty_tpu.io import card
+    from thrifty_tpu_torch.io import card
     from thrifty_tpu_torch.dsp import iq
     from thrifty_tpu_torch.dsp import power_peak as pp
 
@@ -518,7 +914,7 @@ def paths_phase(cap, template):
 
 def fastdet_phase(tmp):
     phase("fastdet goldens (integer sync)")
-    from thrifty_tpu.io import card
+    from thrifty_tpu_torch.io import card
 
     tpl = os.path.join(INPUT, "template.npy")
     common = ["--carrier-window", "7-110", "--quiet", "--sync-mode",
@@ -760,41 +1156,17 @@ CHIP_RATE = 0.999707e6
 
 def code_bank():
     """The 3-code bank of tests/test_code_division.py: [3, 4914]."""
-    from thrifty_tpu.dsp import template as template_mod
+    from thrifty_tpu_torch.dsp import template as template_mod
 
     return template_mod.generate_bank(11, [0, 1, 2], 2.4e6 / CHIP_RATE)
 
 
 def bank_capture(bank):
     """One batch of full-size blocks carrying code 1, a burst every 4."""
-    from thrifty_tpu import sim
+    from thrifty_tpu_torch import sim
 
     return sim.synth_capture(num_blocks=BATCH, bursts_every=4,
                              template=bank[1], seed=1).blocks
-
-
-def synth_rx_captures(**kw):
-    """``sim.synth_rx_captures``, which imports ``corr_window`` from the
-    JAX package's xcorr module (and so jax); the port's ``corr_window``
-    is the same function and is provided under that module name for the
-    call."""
-    import types
-
-    from thrifty_tpu import sim
-    from thrifty_tpu_torch.dsp import xcorr
-
-    name = "thrifty_tpu.dsp.xcorr"
-    saved = sys.modules.get(name)
-    shim = types.ModuleType(name)
-    shim.corr_window = xcorr.corr_window
-    sys.modules[name] = shim
-    try:
-        return sim.synth_rx_captures(**kw)
-    finally:
-        if saved is None:
-            del sys.modules[name]
-        else:
-            sys.modules[name] = saved
 
 
 def device_launches(fn, reps=3):
@@ -865,7 +1237,7 @@ def interp_golden_phase(tmp):
     reference's experimental drivers, through the port's CLI on the
     card."""
     phase("interp goldens")
-    from thrifty_tpu.io import card
+    from thrifty_tpu_torch.io import card
 
     src = os.path.join(INPUT, "rx0.card")
     blocks = len(card.read_card(src)[0])
@@ -898,12 +1270,14 @@ TOAD_FIELDS = {"timestamp": 1, "soa": 3, "offset": 5, "energy": 6,
 
 
 def code_division_captures(bank, num_blocks=CD_BLOCKS):
+    from thrifty_tpu_torch import sim
+
     reps = max(1, int(num_blocks * NEW_LEN / 2.4e6 / 0.4))
     schedule = []
     for k in range(reps):
         schedule += [(0, t + 0.4 * k) for t in np.arange(0.02, 0.36, 0.05)]
         schedule += [(2, t + 0.4 * k) for t in (0.085, 0.185, 0.285)]
-    caps = synth_rx_captures(
+    caps = sim.synth_rx_captures(
         rx_pos=CD_RX_POS, tx_pos={**CD_BEACON_POS, **CD_MOBILE_POS},
         tx_bins={0: 40, 2: 40}, tx_schedule=schedule, template=bank[0],
         num_blocks=num_blocks, amplitude=0.6, noise_std=0.04,
@@ -1028,7 +1402,7 @@ def forward_groups(rx_pos, n, seed, noise=10e-9):
     """``n`` TDOA groups from the forward model: transmitters spread
     over the array's box (+2 km; z in [0, 1500] m in 3-D), the 6 pairs
     (4 in every third group: ragged), Gaussian TDOA noise."""
-    from thrifty_tpu.pipeline import tdoa
+    from thrifty_tpu_torch.pipeline import tdoa
 
     rng = np.random.default_rng(seed)
     coords = np.array(list(rx_pos.values()))
@@ -1053,7 +1427,7 @@ def forward_groups(rx_pos, n, seed, noise=10e-9):
 
 
 def residual_norms(fixes, rx_pos, groups):
-    from thrifty_tpu.pipeline import tdoa
+    from thrifty_tpu_torch.pipeline import tdoa
 
     out = np.empty(len(groups))
     names = [k for k in ("x", "y", "z") if k in fixes.dtype.names]
@@ -1285,11 +1659,20 @@ def options_phase(card_name, tmp, cap, tpl_path, raw_path):
     return per_batch
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--baseline", metavar="CU", action="append", default=[],
+        help="an earlier or another power_peak source with the same C "
+             "interface (named power_peak_<label>.cu), built, held against "
+             "the plain version on every kernel case and timed in turns "
+             "beside the kernel of this checkout; repeatable")
+    args = parser.parse_args(argv)
     card_name = card_phase()
-    build_phase()
+    built = build_phase(args.baseline)
+    probe = built.pop("launch_probe")
 
-    from thrifty_tpu import sim
+    from thrifty_tpu_torch import sim
     from thrifty_tpu_torch.dsp import iq
 
     template = np.load(os.path.join(INPUT, "template.npy"))
@@ -1297,7 +1680,8 @@ def main():
                             template=template, seed=0)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        kernel = kernel_phase(card_name, cap.blocks[:BATCH], template)
+        kernel = kernel_phase(card_name, cap.blocks[:BATCH], template,
+                              probe, built)
         kernel["max_abs_err"] = max(kernel["max_abs_err"],
                                     paths_phase(cap, template))
         golden_phase(tmp)
@@ -1326,7 +1710,9 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    check("jax" not in sys.modules, "jax was imported")
+    loaded = sorted(k for k in sys.modules if k.split(".")[0] in
+                    ("jax", "jaxlib", "thrifty_tpu"))
+    check(not loaded, "imported {}".format(loaded))
     print(json.dumps({"kernels": [kernel]}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {

@@ -36,14 +36,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from thrifty_tpu import sim
-from thrifty_tpu.io import card
+from thrifty_tpu_torch import sim
 from thrifty_tpu_torch.cli import main as cli_main
 from thrifty_tpu_torch.device import resolve_device
 from thrifty_tpu_torch.dsp import carrier, dirichlet, power_peak, xcorr
 from thrifty_tpu_torch.dsp import fft as fft_mod
 from thrifty_tpu_torch.dsp import iq
 from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+from thrifty_tpu_torch.io import card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INPUT = os.path.join(ROOT, "tests", "golden", "input")

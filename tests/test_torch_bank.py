@@ -69,7 +69,7 @@ def jax_state(jdet):
 def pair(template, use_pallas="on", **kw):
     jdet = JaxDetector(template, JaxConfig(use_pallas=use_pallas, **kw))
     tdet = BatchDetector.from_numpy_state(template, DetectorConfig(**kw),
-                                          jax_state(jdet))
+                                          jax_state(jdet), device="cpu")
     return jdet, tdet
 
 
@@ -109,7 +109,7 @@ def test_constants_bit_equal_to_jax(template, kw):
         np.testing.assert_array_equal(np.atleast_1d(own[k]).view(np.uint8),
                                       np.atleast_1d(v).view(np.uint8),
                                       err_msg=k)
-    tdet = BatchDetector(template, DetectorConfig(**kw))
+    tdet = BatchDetector(template, DetectorConfig(**kw), device="cpu")
     assert (tdet.window, tdet.corr_len, tdet.num_templates) == \
         (jdet.window, jdet.corr_len, jdet.num_templates)
 
@@ -121,10 +121,11 @@ def test_state_shapes_are_checked():
     with pytest.raises(ValueError, match="lacks"):
         BatchDetector.from_numpy_state(
             BANK, cfg, {k: v for k, v in state.items()
-                        if k != "preshift_bank"})
+                        if k != "preshift_bank"}, device="cpu")
     with pytest.raises(ValueError, match="tmpl_fft_conj"):
         BatchDetector.from_numpy_state(
-            BANK, cfg, dict(state, tmpl_fft_conj=state["tmpl_fft_conj"][0]))
+            BANK, cfg, dict(state, tmpl_fft_conj=state["tmpl_fft_conj"][0]),
+            device="cpu")
 
 
 @pytest.mark.parametrize("capacity", [3, 12])
@@ -155,8 +156,9 @@ def test_bank_rows_reach_the_reduction_contiguous(cap, monkeypatch):
         return orig(x, mask, stats_mask=stats_mask, layout=layout)
 
     monkeypatch.setattr(pp, "fused_power_peak", spy)
-    BatchDetector(BANK, DetectorConfig(**KW))(cap.blocks)
-    BatchDetector(BANK, DetectorConfig(gate_capacity=12, **KW))(cap.blocks)
+    BatchDetector(BANK, DetectorConfig(**KW), device="cpu")(cap.blocks)
+    BatchDetector(BANK, DetectorConfig(gate_capacity=12, **KW),
+                  device="cpu")(cap.blocks)
     b = len(cap.blocks)
     assert calls == [((b, BLOCK), True, BLOCK), ((3 * b, BLOCK), True, BLOCK),
                      ((b, BLOCK), True, BLOCK), ((36, BLOCK), True, BLOCK)]
@@ -175,7 +177,7 @@ def test_bank_all_modes(sync_mode, corr_interp):
         carrier_bin=40.25, amplitude=0.5, noise_std=0.05, seed=5)
     det = BatchDetector(bank, DetectorConfig(
         carrier_window=(7, 110), sync_mode=sync_mode,
-        corr_interp=corr_interp))
+        corr_interp=corr_interp), device="cpu")
     out = {k: v.numpy() for k, v in det(cap.blocks).items()}
     soa = det.soa(cap.indices, out["corr_sample"], out["corr_offset"])
     errs = []
@@ -211,7 +213,8 @@ def flow():
         freqmap=None, match_window=0.02, tdoa_est_window=8.0,
         rx_pos=cd.RX_POS, beacon_pos=cd.BEACON_POS, sample_rate=cd.FS,
         keep_txid=True)
-    det = BatchDetector(bank, DetectorConfig(carrier_window=(7, 110)))
+    det = BatchDetector(bank, DetectorConfig(carrier_window=(7, 110)),
+                        device="cpu")
     port = kitchen_sink.postdetect(kitchen_sink.detect_all(
         caps, det, batch_size=16, txid_from_template=True), settings)
     jdet = JaxDetector(bank, JaxConfig(carrier_window=(7, 110)))

@@ -56,7 +56,7 @@ def assert_gate_match(got, ref):
 def test_gate_matches_jax(window):
     cap, _ = bursty_stream()
     raw = jiq.iq_to_raw(cap.blocks)
-    got = capture.CarrierGate(BLOCK, window, THRESH)(raw)
+    got = capture.CarrierGate(BLOCK, window, THRESH, device="cpu")(raw)
     ref = jcapture.CarrierGate(BLOCK, window, THRESH)(raw)
     assert_gate_match(got, ref)
     if window == (7, 110):
@@ -70,7 +70,7 @@ def test_gate_stream_matches_jax(block, history):
     new = block - history
     kw = dict(history_len=history)
     window = (7, 110) if block == BLOCK else (3, 12)
-    tgate = capture.CarrierGate(block, window, THRESH, **kw)
+    tgate = capture.CarrierGate(block, window, THRESH, device="cpu", **kw)
     jgate = jcapture.CarrierGate(block, window, THRESH, **kw)
     if block == BLOCK:
         _, stream = bursty_stream()
@@ -93,13 +93,15 @@ def test_stddev_term_raises(thresh):
     changes decisions."""
     cap, stream = bursty_stream(num_blocks=24, seed=4)
     raw = jiq.iq_to_raw(cap.blocks)
-    got = capture.CarrierGate(BLOCK, (7, 110), thresh)(raw)
+    got = capture.CarrierGate(BLOCK, (7, 110), thresh, device="cpu")(raw)
     ref = jcapture.CarrierGate(BLOCK, (7, 110), thresh)(raw)
     assert_gate_match(got, ref)
-    base = capture.CarrierGate(BLOCK, (7, 110), thresh[:2] + (0.0,))(raw)
+    base = capture.CarrierGate(BLOCK, (7, 110), thresh[:2] + (0.0,),
+                               device="cpu")(raw)
     if thresh[2] > 10:
         assert not torch.equal(got[0], base[0])
-    gate = capture.CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY)
+    gate = capture.CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY,
+                               device="cpu")
     jgate = jcapture.CarrierGate(BLOCK, (7, 110), thresh,
                                  history_len=HISTORY)
     assert_gate_match(gate.gate_stream(stream), jgate.gate_stream(stream))
@@ -154,7 +156,8 @@ def test_capture_device_unfold_byte_identical(tmp_path):
 def test_record_cards_flushes_on_stream_error():
     """A dying stream leaves the archive and the counts of what reached
     the host (one batch is in flight)."""
-    gate = capture.CarrierGate(BLOCK, (7, 110), THRESH, history_len=HISTORY)
+    gate = capture.CarrierGate(BLOCK, (7, 110), THRESH, history_len=HISTORY,
+                               device="cpu")
     rows = np.full((4, 2 * BLOCK), 128, np.uint8)
 
     def batches():

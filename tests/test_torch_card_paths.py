@@ -76,7 +76,8 @@ def pair(dev, tmpl=None, **kw):
     cfg = DetectorConfig(block_len=BLOCK, history_len=HISTORY,
                          carrier_window=(7, 110), **kw)
     tmpl = template() if tmpl is None else tmpl
-    return (BatchDetector(tmpl, cfg, device=dev), BatchDetector(tmpl, cfg))
+    return (BatchDetector(tmpl, cfg, device=dev),
+            BatchDetector(tmpl, cfg, device="cpu"))
 
 
 STATS = dict(carrier_thresh=(0.0, 15.0, 40.0),
@@ -129,7 +130,8 @@ def test_capture_gate_on_card_matches_cpu(cuda_device, thresh):
     new = raw[:, 2 * HISTORY:].reshape(-1)
     card = CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY,
                        device=cuda_device)
-    cpu = CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY)
+    cpu = CarrierGate(BLOCK, (7, 110), thresh, history_len=HISTORY,
+                      device="cpu")
     before = pp.launches
     for got, ref in ((card(raw), cpu(raw)),
                      (card.gate_stream(new), cpu.gate_stream(new))):

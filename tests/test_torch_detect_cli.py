@@ -100,6 +100,46 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "rx.toad").exists()
 
 
+ENTRY_POINTS = ("BatchDetector", "from_numpy_state", "CarrierGate",
+                "solve_groups_batched", "solve_batched")
+
+
+def entry_point_calls():
+    """Each entry point with a ``device`` argument, called without it."""
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+    from thrifty_tpu_torch.pipeline import capture, pos, tdoa
+
+    tpl = np.ones(64)
+    cfg = DetectorConfig(block_len=512, history_len=128,
+                         carrier_window=(3, 12))
+    rx = {0: np.zeros(2), 1: np.array([900.0, 0.0]),
+          2: np.array([0.0, 800.0])}
+    rows = np.zeros(2, dtype=tdoa.TDOA_DTYPE)
+    rows["rx0"], rows["rx1"], rows["snr"] = 0, [1, 2], 10.0
+    group = tdoa.TdoaGroup(group_id=0, timestamp=0.0, tx=1, tdoas=rows)
+    return {
+        "BatchDetector": lambda: BatchDetector(tpl, cfg),
+        "from_numpy_state": lambda: BatchDetector.from_numpy_state(
+            tpl, cfg, BatchDetector.numpy_state(tpl, cfg)),
+        "CarrierGate": lambda: capture.CarrierGate(512, (3, 12),
+                                                   (0.0, 15.0, 0.0)),
+        "solve_groups_batched": lambda: pos.solve_groups_batched(
+            np.zeros((1, 3)), np.ones((1, 3), bool), np.zeros((1, 3, 2)),
+            np.ones((1, 3, 2)), (np.full(2, -1e4), np.full(2, 1e4))),
+        "solve_batched": lambda: pos.solve_batched([group], rx),
+    }
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """Without ``device=`` every entry point asks for the card, and on a
+    machine without one that raises instead of running on the CPU."""
+    call = entry_point_calls()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+
+
 def test_resolve_device():
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -119,12 +159,12 @@ def test_unported_flags_are_absent(tmp_path):
 
 KITCHEN_SINK = """
 import functools
-from thrifty_tpu.io import tpl
-from thrifty_tpu.pipeline import identify, tdoa
+from thrifty_tpu_torch.io import tpl
+from thrifty_tpu_torch.pipeline import identify, tdoa
 from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
 from thrifty_tpu_torch.pipeline import kitchen_sink, pos
 det = BatchDetector(tpl.load_template({inp!r} + '/template.npy'),
-                    DetectorConfig(carrier_window=(7, 110)))
+                    DetectorConfig(carrier_window=(7, 110)), device='cpu')
 dets = kitchen_sink.detect_all(
     {{i: {inp!r} + '/rx%d.card' % i for i in range(3)}}, det, batch_size=64)
 with open({inp!r} + '/freq-map.cfg') as f:
@@ -141,14 +181,15 @@ assert len(res.pos) == {fixes}, len(res.pos)
 
 
 def test_cli_never_imports_jax(tmp_path):
-    """In a fresh interpreter (the test session itself has jax loaded),
-    running the port's detect CLI (.card input; raw input with
-    --device-unfold, --gate-capacity and integer sync; a template bank
-    with --emit-txid; the maximise interpolator), its capture CLI (host
-    and device unfold), identify -> match -> tdoa -> pos --batched on
-    the golden chain, and kitchen_sink, then importing the live-source
-    host modules and every port module, leaves jax out of
-    sys.modules."""
+    """In a fresh interpreter (the test session itself has jax loaded)
+    where neither jax nor the JAX package can be imported, running the
+    port's detect
+    CLI (.card input; raw input with --device-unfold, --gate-capacity
+    and integer sync; a template bank with --emit-txid; the maximise
+    interpolator), its capture CLI (host and device unfold), identify
+    -> match -> tdoa -> pos --batched on the golden chain, and
+    kitchen_sink, then importing the port's live-source modules and
+    every port module, works and loads neither."""
     from thrifty_tpu import sim
     from thrifty_tpu.dsp import iq
     from thrifty_tpu.dsp import template as template_mod
@@ -197,17 +238,20 @@ def test_cli_never_imports_jax(tmp_path):
     fixes = len(np.atleast_2d(np.loadtxt(os.path.join(GOLDEN, "data.pos"))))
     code = (
         "import pkgutil, sys, importlib\n"
+        "for name in ('thrifty_tpu', 'jax', 'jaxlib'):\n"
+        "    sys.modules[name] = None  # any import of them raises\n"
         "from thrifty_tpu_torch.cli import main\n"
         "for args in {runs!r}:\n"
         "    assert main(args) == 0, args\n"
         "{sink}\n"
-        "import thrifty_tpu.io.rtl_tcp, thrifty_tpu.io.rtlsdr\n"
+        "import thrifty_tpu_torch.io.rtl_tcp, thrifty_tpu_torch.io.rtlsdr\n"
         "import thrifty_tpu_torch\n"
         "for m in pkgutil.walk_packages(thrifty_tpu_torch.__path__,\n"
         "                               'thrifty_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax'\n"
-        "             or k.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(k for k, v in sys.modules.items() if v is not None\n"
+        "             and k.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                     'thrifty_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX')\n").format(
             runs=runs, sink=KITCHEN_SINK.format(inp=INPUT, fixes=fixes))
@@ -224,44 +268,46 @@ def test_cli_never_imports_jax(tmp_path):
     assert len(np.atleast_2d(np.loadtxt(tmp_path / "data.pos"))) == fixes
 
 
-# The numpy host modules of the JAX package that the port may reuse.
-HOST_MODULES = {"thrifty_tpu.io.card", "thrifty_tpu.io.toad",
-                "thrifty_tpu.io.tpl", "thrifty_tpu.io.blocks",
-                "thrifty_tpu.io.stream", "thrifty_tpu.io.rtl_tcp",
-                "thrifty_tpu.io.rtlsdr", "thrifty_tpu.config.settings",
-                "thrifty_tpu.config.parsers", "thrifty_tpu.dsp.util",
-                "thrifty_tpu.sim",
-                # identify / match / tdoa: the server's numpy stages,
-                # run by the port's CLI and kitchen_sink as they are.
-                "thrifty_tpu.pipeline.identify",
-                "thrifty_tpu.pipeline.matchmaker",
-                "thrifty_tpu.pipeline.tdoa",
-                # pos: its scipy solver, DOP and .pos I/O; jax only
-                # inside _make_batched_solver, which the port never calls.
-                "thrifty_tpu.pipeline.pos",
-                # stats: tdoa's numpy statistics.
-                "thrifty_tpu.stats",
-                # gold / template: numpy Gold codes and template banks.
-                "thrifty_tpu.dsp.gold", "thrifty_tpu.dsp.template"}
-
-
-def _jax_package_imports(path):
+def _jax_package_names(path):
+    """Modules of the JAX package that ``path`` imports, or names in a
+    string (a dotted module path such as ``cli.COMMANDS`` holds, or the
+    argument of an ``import_module`` call); docstrings are prose and
+    may name a counterpart."""
     import ast
+    import re
+
+    def is_jax_package(name):
+        return name == "thrifty_tpu" or name.startswith("thrifty_tpu.")
 
     with open(path) as f:
         tree = ast.parse(f.read(), path)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant):
+                docstrings.add(id(body[0].value))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
-            # `from pkg import mod` may name a module or an attribute.
-            names = [node.module] + ["{}.{}".format(node.module, a.name)
-                                     for a in node.names]
-            names = [n for n in names if n in HOST_MODULES] or names[:1]
+            names = [node.module]
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                "import_module", "__import__"):
+            names = [node.args[0].value]
+        elif isinstance(node, ast.Constant) and isinstance(
+                node.value, str) and id(node) not in docstrings:
+            names = [node.value.strip()] if re.fullmatch(
+                r"thrifty_tpu(\.\w+)+", node.value.strip()) else []
         else:
             continue
         for name in names:
-            if name == "thrifty_tpu" or name.startswith("thrifty_tpu."):
+            if is_jax_package(name):
                 yield name
 
 
@@ -271,12 +317,30 @@ def _jax_package_imports(path):
      for f in fs if f.endswith(".py")]
     + ["chip_smoke.py", os.path.join("scripts", "profile_torch_detect.py")]))
 def test_port_imports_only_host_modules(rel):
-    """The port and its card scripts import, from the JAX package, only its
-    numpy host modules (checked in the source, since those modules may
-    pull in further numpy-only modules of their own)."""
-    bad = sorted(set(_jax_package_imports(os.path.join(ROOT, rel)))
-                 - HOST_MODULES)
+    """The port and its card scripts import nothing of the JAX package,
+    not even its numpy host modules (the port keeps its own copies),
+    and name none of its modules for a later import (checked in the
+    source)."""
+    bad = sorted(set(_jax_package_names(os.path.join(ROOT, rel))))
     assert not bad, bad
+
+
+def test_source_check_finds_jax_package_names(tmp_path):
+    """The source check above flags an import, a module path held in a
+    string and an import_module call, and passes a docstring that names
+    a counterpart."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        '"""Counterpart of ``thrifty_tpu.io.card``."""\n'
+        "import importlib\n"
+        "from thrifty_tpu.io import card\n"
+        "import thrifty_tpu.sim\n"
+        "COMMANDS = {'tdoa': 'thrifty_tpu.pipeline.tdoa'}\n"
+        "importlib.import_module('thrifty_tpu')\n"
+        "PATH = 'thrifty_tpu/dsp/pallas_kernels.py:163'\n")
+    assert sorted(_jax_package_names(str(src))) == [
+        "thrifty_tpu", "thrifty_tpu.io", "thrifty_tpu.pipeline.tdoa",
+        "thrifty_tpu.sim"]
 
 
 def test_detect_batches_drops_padding():
@@ -290,7 +354,7 @@ def test_detect_batches_drops_padding():
 
     det = BatchDetector(tpl_io.load_template(
         os.path.join(INPUT, "template.npy")),
-        DetectorConfig(carrier_window=(7, 110)))
+        DetectorConfig(carrier_window=(7, 110)), device="cpu")
     batches = [(ts[:5], idx[:5], raw[:5]), (ts[5:0], idx[5:0], raw[5:0]),
                (ts[5:], idx[5:], raw[5:])]
     recs = list(port_detect.detect_batches(det, iter(batches), 32, rxid=2))

@@ -54,7 +54,8 @@ def pair(window):
                                       use_pallas="on"))
     tdet = BatchDetector.from_numpy_state(
         TPL, DetectorConfig(block_len=BLOCK, history_len=HISTORY,
-                            carrier_window=window), jax_state(jdet))
+                            carrier_window=window), jax_state(jdet),
+        device="cpu")
     return jdet, tdet
 
 
@@ -124,7 +125,8 @@ def test_own_constants_bit_equal_to_jax(window):
             np.atleast_1d(own[k]).view(np.uint8),
             np.atleast_1d(v).view(np.uint8), err_msg=k)
     tdet = BatchDetector(TPL, DetectorConfig(
-        block_len=BLOCK, history_len=HISTORY, carrier_window=window))
+        block_len=BLOCK, history_len=HISTORY, carrier_window=window),
+        device="cpu")
     assert tdet.window == jdet.window
     assert (tdet.corr_len, tdet.new_len) == (jdet.corr_len, jdet.new_len)
 
@@ -146,14 +148,15 @@ def test_state_is_checked():
                          carrier_window=(7, 110))
     state = jax_state(jdet)
     with pytest.raises(ValueError, match="lacks"):
-        BatchDetector.from_numpy_state(TPL, cfg, {"tmpl_energy": 1.0})
+        BatchDetector.from_numpy_state(TPL, cfg, {"tmpl_energy": 1.0},
+                                       device="cpu")
     bad = dict(state, tmpl_fft_conj=state["tmpl_fft_conj"].astype(
         np.complex128))
     with pytest.raises(ValueError, match="complex64"):
-        BatchDetector.from_numpy_state(TPL, cfg, bad)
+        BatchDetector.from_numpy_state(TPL, cfg, bad, device="cpu")
     empty = dict(state, corr_mask_full=np.zeros(BLOCK, bool))
     with pytest.raises(ValueError, match="no True entries"):
-        BatchDetector.from_numpy_state(TPL, cfg, empty)
+        BatchDetector.from_numpy_state(TPL, cfg, empty, device="cpu")
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -170,7 +173,7 @@ def test_unported_options_raise(kw, match):
     cfg = DetectorConfig(**dict(dict(block_len=BLOCK, history_len=HISTORY),
                                 **kw))
     with pytest.raises(ValueError, match=match):
-        BatchDetector(TPL, cfg)
+        BatchDetector(TPL, cfg, device="cpu")
     with pytest.raises(ValueError, match=match):
         JaxDetector(TPL, JaxConfig(**dict(
             dict(block_len=BLOCK, history_len=HISTORY), **kw)))
@@ -181,7 +184,7 @@ def test_template_bank_raises():
     any other rank raises."""
     with pytest.raises(ValueError, match="template"):
         BatchDetector(np.stack([[TPL, TPL]]), DetectorConfig(
-            block_len=BLOCK, history_len=HISTORY))
+            block_len=BLOCK, history_len=HISTORY), device="cpu")
 
 
 def test_bad_batch_shape_raises():

@@ -75,7 +75,7 @@ def integer_pair(window):
     tdet = BatchDetector.from_numpy_state(
         TPL, DetectorConfig(block_len=BLOCK, history_len=HISTORY,
                             carrier_window=window, sync_mode="integer"),
-        jax_state(jdet))
+        jax_state(jdet), device="cpu")
     return jdet, tdet
 
 
@@ -105,7 +105,7 @@ def test_explicit_interpolators_match_jax():
                   carrier_window=(7, 110), sync_mode=sync,
                   carrier_interp=interp)
         jdet = JaxDetector(TPL, JaxConfig(use_pallas="on", **kw))
-        tdet = BatchDetector(TPL, DetectorConfig(**kw))
+        tdet = BatchDetector(TPL, DetectorConfig(**kw), device="cpu")
         assert_outputs_match(tdet(cap.blocks),
                              jdet._detect_batch(np.asarray(cap.blocks)))
 

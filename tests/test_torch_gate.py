@@ -43,7 +43,7 @@ def cap():
 
 @pytest.fixture(scope="module")
 def n_carrier(cap):
-    det = BatchDetector(TPL, DetectorConfig(**KW))
+    det = BatchDetector(TPL, DetectorConfig(**KW), device="cpu")
     return int(det(cap.blocks)["carrier_detect"].sum())
 
 
@@ -51,7 +51,7 @@ def detectors(capacity, **kw):
     jdet = JaxDetector(TPL, JaxConfig(use_pallas="off",
                                       gate_capacity=capacity, **KW, **kw))
     tdet = BatchDetector(TPL, DetectorConfig(gate_capacity=capacity, **KW,
-                                             **kw))
+                                             **kw), device="cpu")
     return jdet, tdet
 
 
@@ -98,9 +98,9 @@ def test_gate_equals_ungated_on_carrier_rows(cap):
     """On carrier-positive rows the gate is invisible: the port's gated
     outputs equal its ungated ones there, bit for bit (the same row-wise
     program on gathered rows)."""
-    full = BatchDetector(TPL, DetectorConfig(**KW))(cap.blocks)
-    gated = BatchDetector(TPL, DetectorConfig(gate_capacity=12, **KW))(
-        cap.blocks)
+    full = BatchDetector(TPL, DetectorConfig(**KW), device="cpu")(cap.blocks)
+    gated = BatchDetector(TPL, DetectorConfig(gate_capacity=12, **KW),
+                          device="cpu")(cap.blocks)
     pos = full["carrier_detect"]
     for k in full:
         assert torch.equal(full[k][pos], gated[k][pos]), k
@@ -154,10 +154,11 @@ def test_all_bursts_batch_falls_back():
 
 
 def test_capacity_at_or_above_batch_is_ungated(cap):
-    tdet = BatchDetector(TPL, DetectorConfig(gate_capacity=24, **KW))
+    tdet = BatchDetector(TPL, DetectorConfig(gate_capacity=24, **KW),
+                         device="cpu")
     batch = tdet.submit(cap.blocks)
     assert batch.overflowed is None
-    full = BatchDetector(TPL, DetectorConfig(**KW))(cap.blocks)
+    full = BatchDetector(TPL, DetectorConfig(**KW), device="cpu")(cap.blocks)
     for k, v in batch.result().items():
         assert torch.equal(v, full[k]), k
     assert batch.overflowed is None  # no flag, no host read
@@ -165,13 +166,15 @@ def test_capacity_at_or_above_batch_is_ungated(cap):
 
 def test_negative_capacity_raises():
     with pytest.raises(ValueError, match="gate_capacity"):
-        BatchDetector(TPL, DetectorConfig(gate_capacity=-1, **KW))
+        BatchDetector(TPL, DetectorConfig(gate_capacity=-1, **KW),
+                      device="cpu")
 
 
 def test_compaction_gathers_carrier_rows_in_order(cap, monkeypatch):
     """The correlation stage sees the carrier rows first, in index order,
     then filler rows (a stable sort of integer keys)."""
-    tdet = BatchDetector(TPL, DetectorConfig(gate_capacity=12, **KW))
+    tdet = BatchDetector(TPL, DetectorConfig(gate_capacity=12, **KW),
+                         device="cpu")
     seen = []
     orig = tdet._corr_stage
 

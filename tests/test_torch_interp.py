@@ -43,7 +43,7 @@ def pair(use_pallas="on", template=TPL, **kw):
     kw = dict(KW, **kw)
     jdet = JaxDetector(template, JaxConfig(use_pallas=use_pallas, **kw))
     tdet = BatchDetector.from_numpy_state(template, DetectorConfig(**kw),
-                                          jax_state(jdet))
+                                          jax_state(jdet), device="cpu")
     return jdet, tdet
 
 
@@ -89,7 +89,7 @@ def test_stddev_terms_match_jax(carrier_d, corr_d):
     kw = dict(carrier_thresh=(0.0, 15.0, carrier_d),
               corr_thresh=(0.0, 15.0, corr_d))
     got = compare(cap, **kw)
-    base = BatchDetector(TPL, DetectorConfig(**KW))(cap.blocks)
+    base = BatchDetector(TPL, DetectorConfig(**KW), device="cpu")(cap.blocks)
     side = "carrier_detect" if carrier_d else "detected"
     assert not torch.equal(got[side], base[side])
 

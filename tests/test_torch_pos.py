@@ -161,7 +161,8 @@ def test_coplanar_mirror_minima_match_jax():
     rounding."""
     rx_pos, groups = CASES["coplanar"]()
     ref = coords(jpos.solve_batched(groups, rx_pos, verbose=False))[0]
-    got = coords(pos.solve_batched(groups, rx_pos, verbose=False))[0]
+    got = coords(pos.solve_batched(groups, rx_pos, verbose=False,
+                                   device="cpu"))[0]
     starts, scores = (t.numpy() for t in pos._solve_starts(
         *padded_inputs(groups, rx_pos), 30, 1e-2, None,
         torch.device("cpu")))
@@ -203,8 +204,10 @@ def test_padding_never_changes_a_result(case):
     port pads to the largest pair count only.  Extra masked pairs and
     empty groups change no position (and JAX's padded solve agrees)."""
     rx_pos, groups = CASES[case]()
-    tight = pos.solve_groups_batched(*padded_inputs(groups, rx_pos))
-    padded = pos.solve_groups_batched(*padded_inputs(groups, rx_pos, 5, 3))
+    tight = pos.solve_groups_batched(*padded_inputs(groups, rx_pos),
+                                     device="cpu")
+    padded = pos.solve_groups_batched(*padded_inputs(groups, rx_pos, 5, 3),
+                                      device="cpu")
     np.testing.assert_allclose(padded[:len(groups)], tight, atol=1e-9)
     ref = np.asarray(jpos.solve_groups_batched(
         *padded_inputs(groups, rx_pos)))
@@ -222,7 +225,7 @@ def test_groups_solver_matches_jax_masked_pairs():
     rx1 = np.stack([[RX4[int(b)] for b in g["rx1"]] + [RX4[1]]])
     coords = np.array(list(RX4.values()))
     bounds = (coords.min(0) - pos.MAX_DIST, coords.max(0) + pos.MAX_DIST)
-    got = pos.solve_groups_batched(tp, mask, rx0, rx1, bounds)
+    got = pos.solve_groups_batched(tp, mask, rx0, rx1, bounds, device="cpu")
     ref = np.asarray(jpos.solve_groups_batched(tp, mask, rx0, rx1, bounds))
     np.testing.assert_allclose(got, ref, atol=1e-6)
     np.testing.assert_allclose(got[0], [3000.0, 3000.0], atol=0.5)
@@ -238,8 +241,8 @@ def test_skips_and_empty(capsys):
     assert got["group_id"].tolist() == [0]
     err = capsys.readouterr().err
     assert "#1: underdetermined" in err and "#2: receiver(s) [7]" in err
-    assert len(pos.solve_batched([], RX4)) == 0
-    pos.solve_batched(groups[1:], RX4, verbose=False)
+    assert len(pos.solve_batched([], RX4, device="cpu")) == 0
+    pos.solve_batched(groups[1:], RX4, verbose=False, device="cpu")
     assert capsys.readouterr().err == ""
 
 

@@ -237,3 +237,241 @@ def test_kernel_empty_batch_and_errors(cuda_device):
     assert idx.shape == (0,) and tpp.launches == before
     with pytest.raises(ValueError, match="no True entries"):
         tpp.fused_power_peak(x, np.zeros(128, bool))
+
+
+# -- the kernel's launch plan (CPU) ------------------------------------------
+
+N_VALUES = [1, 7, 1000, 2048, 2049, 16384, 16385]
+SMS = 132  # an H100 SXM
+# One row: S = clamp(ceil(n / 2048), 1, 8), the rows never fill the card.
+PLANS = {1: (1, 4), 7: (1, 8), 1000: (1, 1000), 2048: (1, 2048),
+         2049: (2, 1028), 16384: (8, 2048), 16385: (8, 2052)}
+# At n = 16384: split while rows < 66 (half the SMs), by ceil(66 / rows).
+ROW_PLANS = {1: (8, 2048), 8: (8, 2048), 9: (8, 2048), 11: (6, 2732),
+             32: (3, 5464), 64: (2, 8192), 65: (2, 8192), 66: (1, 16384),
+             128: (1, 16384), 256: (1, 16384), 768: (1, 16384)}
+
+
+@pytest.mark.parametrize("n", N_VALUES)
+def test_cluster_plan_and_slices(n):
+    """For one row: S = clamp(ceil(n / 2048), 1, 8) CTAs; slices of
+    ceil(n/S) columns rounded up to 4 that start 16-byte aligned and tile
+    the row in rank order, none empty.  A batch of 256 rows fills the
+    card and is never split."""
+    assert tpp.cluster_plan(n, 1, SMS) == PLANS[n]
+    s, slice_len = PLANS[n]
+    bounds = tpp.slice_bounds(n, 1, SMS)
+    assert len(bounds) == s
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    for (lo, hi), (nxt, _) in zip(bounds, bounds[1:] + [(n, n)]):
+        assert lo % 4 == 0 and lo < hi <= lo + slice_len and hi == nxt
+    assert tpp.slice_bounds(n, 256, SMS) == [(0, n)]
+
+
+@pytest.mark.parametrize("rows", sorted(ROW_PLANS))
+def test_cluster_plan_by_rows(rows):
+    """Rows are split only while they give fewer CTAs than half the SMs."""
+    assert tpp.cluster_plan(16384, rows, SMS) == ROW_PLANS[rows]
+    assert tpp.cluster_plan(16384, rows, 16)[0] == (1 if rows >= 8 else
+                                                    -(-8 // rows))
+
+
+A = 1 << 20  # a 16-byte-aligned address
+
+
+@pytest.mark.parametrize("case,args,vec", [
+    ("interleaved", (A, A + 4, A + 4096, None, 2 * 16384, 2, 1), True),
+    ("interleaved_stats", (A, A + 4, A + 4096, A + 8192, 2 * 16384, 2, 1),
+     True),
+    ("interleaved_odd_n", (A, A + 4, A + 4096, None, 2 * 16385, 2, 1),
+     False),
+    ("interleaved_offset_8", (A + 8, A + 12, A + 4096, None, 2 * 16384, 2,
+                              1), False),
+    ("mask_offset", (A, A + 4, A + 4097, None, 2 * 16384, 2, 1), False),
+    ("stats_mask_offset", (A, A + 4, A + 4096, A + 8196, 2 * 16384, 2, 1),
+     False),
+    ("planes", (A, A + 65536, A + 4096, None, 16384, 1, 0), True),
+    ("planes_n_not_4k", (A, A + 65536, A + 4096, None, 16386, 1, 0), False),
+    ("planes_im_offset", (A, A + 65540, A + 4096, None, 16384, 1, 0), False),
+    ("planes_elem_stride_2", (A, A + 65536, A + 4096, None, 16384, 2, 0),
+     False),
+])
+def test_vector_path_choice(case, args, vec):
+    """The 16-byte load path runs only on aligned rows, planes and masks;
+    everything else takes the scalar path of the same kernel."""
+    assert tpp.vector_path(*args) is vec
+
+
+def slice_merge(x, mask, stats_mask=None):
+    """Plain-torch emulation of the kernel's reduction: each slice of
+    slice_bounds(n, rows, SMS) reduced on its own (argmax with NaN largest
+    and the earliest column, sums), then merged in slice order with the
+    kernel's rule; the peak re-read at the winning column."""
+    power = x.real * x.real + x.imag * x.imag
+    masked = torch.where(mask, power, -1.0)
+    best = col = None
+    sums = []
+    for lo, hi in tpp.slice_bounds(x.shape[1], x.shape[0], SMS):
+        k = torch.argmax(masked[:, lo:hi], dim=-1)
+        v = torch.gather(masked[:, lo:hi], -1, k[:, None])[:, 0]
+        c = k + lo
+        part = [power[:, lo:hi].sum(-1)]
+        if stats_mask is not None:
+            sm = stats_mask[lo:hi]
+            part += [torch.where(sm, power[:, lo:hi], 0.0).sum(-1),
+                     torch.where(sm, torch.sqrt(power[:, lo:hi]),
+                                 0.0).sum(-1)]
+        if best is None:
+            best, col, sums = v, c, part
+            continue
+        v_nan, b_nan = torch.isnan(v), torch.isnan(best)
+        take = torch.where(v_nan | b_nan, v_nan & (~b_nan | (c < col)),
+                           (v > best) | ((v == best) & (c < col)))
+        best, col = torch.where(take, v, best), torch.where(take, c, col)
+        sums = [a + b for a, b in zip(sums, part)]
+    peak = torch.gather(power, -1, col[:, None])[:, 0]
+    return [col.to(torch.int32), peak] + sums
+
+
+def boundary_rows(n, rows, sms=SMS, seed=0):
+    """Rows with their maxima placed on the slice boundaries of n: a peak
+    in the last column of a slice, equal powers at the last column of
+    slice k and the first of slice k+1 (the earliest must win), a NaN in
+    a later slice, NaNs at two slice starts, a NaN in a masked-out
+    column; other rows random.  Returns (x complex64, mask, stats mask)."""
+    x = background(rows, n, seed)
+    bounds = tpp.slice_bounds(n, rows, sms)
+    last = len(bounds) - 1
+    mask = np.ones(n, dtype=bool)
+    if n >= 100:
+        mask[1:n // 50] = False
+    for r in range(rows):
+        k = r % len(bounds)
+        hi = bounds[k][1]
+        kind = r % 6
+        if kind == 0:
+            x[r, hi - 1] = 5.0 + 1.0j
+        elif kind == 1 and last:
+            k = min(k, last - 1)
+            x[r, bounds[k][1] - 1] = 3.0 + 4.0j
+            x[r, bounds[k + 1][0]] = 4.0 + 3.0j  # same power, later column
+        elif kind == 2:
+            x[r, max(bounds[last][0], n - 1 - r % 3)] = np.nan
+            x[r, 0] = 9.0
+        elif kind == 3 and last:
+            x[r, bounds[1][0]] = np.nan + 0j
+            x[r, bounds[last][0]] = np.nan
+        elif kind == 4 and n >= 100:
+            x[r, 2] = np.nan                # masked out: ignored in idx
+            x[r, n - 1] = 2.0
+    return x, mask, stats_mask_for(n)
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("n", [7, 2049, 16384, 16385])
+def test_slice_merge_matches_plain(n, stats):
+    """The slice-ordered merge gives the plain version's idx and peak bit
+    for bit (ties and NaNs on slice boundaries) and its sums within
+    float32 reassociation."""
+    x, mask, sm = boundary_rows(n, 12, seed=n)
+    xt = torch.from_numpy(x)
+    m = torch.from_numpy(mask)
+    smt = torch.from_numpy(sm) if stats else None
+    got = slice_merge(xt, m, smt)
+    ref = tpp.fused_power_peak_reference(xt.real, xt.imag, m, smt)
+    np.testing.assert_array_equal(got[0].numpy(), ref[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy().view(np.uint32),
+                                  ref[1].numpy().view(np.uint32))
+    for g, r in zip(got[2:], ref[2:]):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5)
+    if n > 2048:
+        assert np.isnan(ref[1].numpy()[2]) and np.isnan(ref[1].numpy()[3])
+        bounds = tpp.slice_bounds(n, 12, SMS)
+        k = min(1, len(bounds) - 2)
+        assert ref[0].numpy()[1] == bounds[k][1] - 1  # the earlier tie
+
+
+# -- the cluster kernel on the card -------------------------------------------
+
+CARD_SHAPES = [(rows, 16384) for rows in (1, 3, 32, 64, 128, 256, 768)] \
+    + [(3, n) for n in N_VALUES if n != 16384]
+
+
+def card_sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def expected_plan(xd, layout):
+    """The plan of the Python mirror for ``xd`` (masks are fresh, so
+    aligned; planes are fresh contiguous copies)."""
+    rows, n = xd.shape
+    if layout == "interleaved":
+        vec = xd.data_ptr() % 16 == 0 and (8 * xd.stride(0)) % 16 == 0
+    else:
+        vec = n % 4 == 0
+    sms = card_sms(xd.device)
+    return tpp.cluster_plan(n, rows, sms) + (vec, sms)
+
+
+def assert_kernel_matches_plain(xd, mask, sm, layout):
+    """One launch against the plain version: idx and peak bit-equal, sums
+    within 1e-5; a second launch gives bit-equal sums."""
+    dev = xd.device
+    before = tpp.launches
+    got = tpp.fused_power_peak(xd, mask, stats_mask=sm, layout=layout)
+    again = tpp.fused_power_peak(xd, mask, stats_mask=sm, layout=layout)
+    torch.cuda.synchronize()
+    assert tpp.launches == before + 2
+    ref = tpp.fused_power_peak_reference(
+        xd.real, xd.imag, torch.from_numpy(mask).to(dev),
+        None if sm is None else torch.from_numpy(sm).to(dev))
+    got = [g.cpu().numpy() for g in got]
+    again = [g.cpu().numpy() for g in again]
+    ref = [r.cpu().numpy() for r in ref]
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1].view(np.uint32),
+                                  ref[1].view(np.uint32))
+    for g, a, r in zip(got[2:], again[2:], ref[2:]):
+        np.testing.assert_allclose(g, r, rtol=1e-5)
+        np.testing.assert_array_equal(g.view(np.uint32), a.view(np.uint32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+@pytest.mark.parametrize("rows,n", CARD_SHAPES)
+def test_cluster_kernel_on_slice_boundaries(cuda_device, rows, n, layout,
+                                            stats):
+    """Rows split over clusters of up to 8 CTAs (few rows) or one CTA
+    each (a full card): peaks in the last column of a slice, equal powers
+    across a slice boundary, NaNs in later slices; the kernel's own
+    launch plan equals the Python mirror."""
+    x, mask, sm = boundary_rows(n, rows, card_sms(cuda_device),
+                                seed=rows + n)
+    xd = torch.from_numpy(x).to(cuda_device)
+    sm = sm if stats else None
+    assert tpp.kernel_plan(xd, mask, sm, layout) == expected_plan(xd, layout)
+    got = assert_kernel_matches_plain(xd, mask, sm, layout)
+    bounds = tpp.slice_bounds(n, rows, card_sms(cuda_device))
+    if len(bounds) > 1 and rows > 1:
+        assert got[0][1] == bounds[min(1, len(bounds) - 2)][1] - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_cluster_kernel_misaligned_input(cuda_device, layout, stats):
+    """A contiguous complex64 view 8 bytes past a 16-byte boundary takes
+    the scalar path of the same kernel (interleaved) and still matches."""
+    b, n = 6, 16384
+    x, mask, sm = boundary_rows(n, b, card_sms(cuda_device), seed=3)
+    buf = torch.empty(b * n + 1, dtype=torch.complex64, device=cuda_device)
+    xd = buf[1:].view(b, n)
+    xd.copy_(torch.from_numpy(x))
+    assert xd.data_ptr() % 16 == 8
+    sm = sm if stats else None
+    plan = tpp.kernel_plan(xd, mask, sm, layout)
+    assert plan == expected_plan(xd, layout)
+    assert plan[2] is (layout == "planes")
+    assert_kernel_matches_plain(xd, mask, sm, layout)

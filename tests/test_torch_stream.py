@@ -95,7 +95,8 @@ def stream_pair(window=(7, 110)):
                                       use_pallas="on"))
     tdet = BatchDetector.from_numpy_state(
         TPL, DetectorConfig(block_len=BLOCK, history_len=HISTORY,
-                            carrier_window=window), jax_state(jdet))
+                            carrier_window=window), jax_state(jdet),
+        device="cpu")
     return jdet, tdet
 
 

@@ -59,29 +59,31 @@ def sources() -> list[str]:
                   for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def library_path(name: str, nvcc: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+def library_path(name: str, nvcc: str, source: str = None) -> str:
+    with open(source or os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
         text = f.read()
     digest = hashlib.sha256(
         text + "\0".join((nvcc,) + NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, "lib{}-{}.so".format(name, digest))
 
 
-def build(name: str, force: bool = False) -> tuple[str, float, str]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists
+def build(name: str, force: bool = False,
+          source: str = None) -> tuple[str, float, str]:
+    """Compile ``csrc/<name>.cu`` (or the file ``source``, under the
+    library name ``name``) unless an up-to-date library exists
     (``force`` compiles anyway).
 
     Returns (library path, seconds spent compiling -- 0.0 when it was
     already built, compiler output).
     """
     nvcc = find_nvcc()
-    out = library_path(name, nvcc)
+    source = source or os.path.join(CSRC_DIR, name + ".cu")
+    out = library_path(name, nvcc, source)
     if os.path.exists(out) and not force:
         return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "{}.tmp.{}".format(out, os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=600)

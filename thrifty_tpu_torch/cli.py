@@ -1,9 +1,9 @@
 """Command dispatcher of the port: ``python -m thrifty_tpu_torch.cli <command>``.
 
 Mirrors ``thrifty_tpu.cli`` with the commands ported so far, lazily
-importing each command module.  ``identify``, ``match`` and ``tdoa`` are
-the JAX package's numpy modules (they import no jax); ``pos`` is the
-port's, for its batched solver.
+importing each command module of the port.  ``identify``, ``match`` and
+``tdoa`` are numpy, copies of the JAX package's modules; ``pos`` adds
+the batched solver on torch.
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ arguments.  Commands not listed here run on the JAX package
 COMMANDS = {
     "capture": "thrifty_tpu_torch.pipeline.capture",
     "detect": "thrifty_tpu_torch.pipeline.detect",
-    "identify": "thrifty_tpu.pipeline.identify",
-    "match": "thrifty_tpu.pipeline.matchmaker",
-    "tdoa": "thrifty_tpu.pipeline.tdoa",
+    "identify": "thrifty_tpu_torch.pipeline.identify",
+    "match": "thrifty_tpu_torch.pipeline.matchmaker",
+    "tdoa": "thrifty_tpu_torch.pipeline.tdoa",
     "pos": "thrifty_tpu_torch.pipeline.pos",
 }
 

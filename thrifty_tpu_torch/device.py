@@ -1,9 +1,10 @@
 """Explicit device selection for the port.
 
-The port never picks a device on its own: the caller names ``"cuda"``
-or ``"cpu"``, and asking for ``"cuda"`` on a machine without a usable
-card is an error, not a quiet fall back to the CPU (a detector that
-silently runs on the CPU is a detector that silently misses real time).
+The port runs on the card unless the caller asks for the CPU: every
+entry point's ``device`` defaults to ``"cuda"``, the tests pass
+``"cpu"``.  Asking for ``"cuda"`` on a machine without a usable card is
+an error, not a quiet fall back to the CPU (a detector that silently
+runs on the CPU is a detector that silently misses real time).
 """
 
 from __future__ import annotations
@@ -35,3 +36,13 @@ def resolve_device(name: str) -> torch.device:
                 "is false (no CUDA card or a CPU-only PyTorch build)")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def as_device(device) -> torch.device:
+    """A device name or :class:`torch.device` of type ``"cuda"`` or
+    ``"cpu"`` -> :class:`torch.device`, through :func:`resolve_device`
+    (so a CUDA device without a usable card raises ``RuntimeError``);
+    an explicit index such as ``"cuda:1"`` is kept."""
+    dev = torch.device(device)
+    resolved = resolve_device(dev.type)
+    return resolved if dev.index is None else dev

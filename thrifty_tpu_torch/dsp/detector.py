@@ -56,6 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from thrifty_tpu_torch.device import as_device
 from thrifty_tpu_torch.dsp import carrier, dirichlet, power_peak, shift, \
     unfold, xcorr
 from thrifty_tpu_torch.dsp import fft as fft_mod
@@ -172,11 +173,11 @@ class BatchDetector:
     """
 
     def __init__(self, template: np.ndarray, config: DetectorConfig,
-                 device="cpu", state=None):
+                 device="cuda", state=None):
         template = np.asarray(template, dtype=np.float64)
         _validate(config, template)
         self.config = config
-        self.device = torch.device(device)
+        self.device = as_device(device)
         self.bank = template.ndim == 2
         self.num_templates = template.shape[0] if self.bank else 1
         self.template_len = template.shape[-1]
@@ -247,7 +248,7 @@ class BatchDetector:
         return functools.partial(fn, clip=self.corr_clip), 1
 
     @classmethod
-    def from_numpy_state(cls, template, config, state, device="cpu"):
+    def from_numpy_state(cls, template, config, state, device="cuda"):
         """A detector whose constants come from ``state``, a dict of
         numpy arrays named as the JAX ``BatchDetector`` attributes that
         hold them, without the leading underscore (``tmpl_fft_conj``,

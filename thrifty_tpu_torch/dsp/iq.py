@@ -3,7 +3,8 @@
 Counterpart of ``thrifty_tpu.dsp.iq``: the same ``(x - 127.4) / 128``
 conversion (reference thrifty/block_data.py:38-67), so the batch crosses
 host -> device as uint8 (2 bytes per sample) and is widened there.
-``raw_to_iq`` is bit-equal to the host numpy ``thrifty_tpu.dsp.iq.raw_to_iq``;
+``raw_to_iq`` (torch) and ``raw_to_iq_host`` (numpy, for ``io.card`` and
+``sim``) are bit-equal to the host numpy ``thrifty_tpu.dsp.iq.raw_to_iq``;
 ``iq_to_raw`` is the host numpy quantiser that writes synthetic captures.
 """
 
@@ -27,6 +28,15 @@ def raw_to_iq(raw: torch.Tensor) -> torch.Tensor:
             raw.dtype, tuple(raw.shape)))
     f = (raw.to(torch.float32) - DC_OFFSET) * SCALE
     return torch.view_as_complex(f.reshape(f.shape[:-1] + (-1, 2)))
+
+
+def raw_to_iq_host(raw: np.ndarray) -> np.ndarray:
+    """uint8 interleaved I/Q [..., 2N] -> complex64 [..., N] (host numpy)."""
+    raw = np.asarray(raw, dtype=np.uint8)
+    f = raw.astype(np.float32)
+    i = (f[..., 0::2] - DC_OFFSET) * SCALE
+    q = (f[..., 1::2] - DC_OFFSET) * SCALE
+    return (i + 1j * q).astype(np.complex64)
 
 
 def iq_to_raw(iq: np.ndarray) -> np.ndarray:

@@ -6,7 +6,9 @@ correlation to a few numbers per row: the windowed argmax of |x|^2, the
 peak power, the total power and, optionally, masked power / magnitude
 sums.  Eager PyTorch would take separate passes over [B, N] for the
 power, the argmax, the gather and the sum; the hand-written CUDA kernel
-``csrc/power_peak.cu`` does all of it in one read of the array.
+``csrc/power_peak.cu`` does all of it in one read of the array, with one
+CTA per row, or a row split over a thread-block cluster when the rows
+are too few to fill the card (:func:`cluster_plan`).
 
 :func:`fused_power_peak` launches that kernel for a CUDA tensor and
 takes the plain PyTorch version :func:`fused_power_peak_reference` for
@@ -66,7 +68,8 @@ class Mask:
         if host.ndim != 1:
             raise ValueError("mask must be 1-D, got shape {}".format(
                 host.shape))
-        if not allow_empty and not host.any():
+        self.nonempty = bool(host.any())
+        if not allow_empty and not self.nonempty:
             # An empty search window is a config error; the kernel's -1.0
             # sentinel would otherwise surface as a masked-out winner.
             raise ValueError("search mask has no True entries "
@@ -84,7 +87,7 @@ def _as_mask(mask, device, allow_empty=False):
         if mask.flags.device != device:
             raise ValueError("mask lives on {}, data on {}".format(
                 mask.flags.device, device))
-        if not allow_empty and not mask.host.any():
+        if not allow_empty and not mask.nonempty:
             raise ValueError("search mask has no True entries "
                              "(empty carrier/correlation window)")
         return mask
@@ -133,55 +136,126 @@ def fused_power_peak(x, mask, stats_mask=None, layout="interleaved"):
     return _launch(x, mask, smask, layout)
 
 
-def _library():
-    from thrifty_tpu_torch import _build
+# The kernel's launch plan (csrc/power_peak.cu:make_plan, mirrored here
+# for the tests): a row of n columns is split over a cluster of S CTAs
+# only while the rows alone give fewer CTAs than half the card's SMs, and
+# never into slices under CTA_COLS columns: S = clamp(min(ceil(sms / 2 /
+# rows), ceil(n / CTA_COLS)), 1, MAX_CLUSTER).  Each CTA reduces a slice
+# of ceil(n / S) columns rounded up to a multiple of SLICE_ALIGN.
+CTA_COLS = 2048
+MAX_CLUSTER = 8
+SLICE_ALIGN = 4
 
-    lib = _build.load("power_peak")
-    if not getattr(lib, "_tt_typed", False):
+
+def cluster_plan(n, rows, sms):
+    """(CTAs per row S, columns per CTA) for ``rows`` rows of ``n``
+    samples on a card with ``sms`` streaming multiprocessors."""
+    by_rows = -(-max(sms // 2, 1) // rows) if rows > 0 else 1
+    s = min(max(min(by_rows, -(-n // CTA_COLS)), 1), MAX_CLUSTER)
+    slice_len = -(-n // s)
+    return s, slice_len + -slice_len % SLICE_ALIGN
+
+
+def vector_path(re, im, mask, smask, row_stride, elem_stride, interleaved):
+    """Does the kernel take its 16-byte load path for these operands?
+    Addresses in bytes, strides in floats (as the C interface takes
+    them).  It needs the row base (and, in planes, the im plane and an
+    element stride of 1) and the masks 16-byte aligned, and rows
+    ``4 * row_stride`` bytes apart on a 16-byte boundary; anything else
+    takes the scalar path of the same kernel."""
+    vec = re % 16 == 0 and mask % 16 == 0 \
+        and (smask is None or smask % 16 == 0) and (4 * row_stride) % 16 == 0
+    if not interleaved:
+        vec = vec and im % 16 == 0 and elem_stride == 1
+    return vec
+
+
+def slice_bounds(n, rows, sms):
+    """[(lo, hi)] of the S column slices of a row, in rank order."""
+    s, slice_len = cluster_plan(n, rows, sms)
+    return [(min(r * slice_len, n), min((r + 1) * slice_len, n))
+            for r in range(s)]
+
+
+_fn = None     # the typed tt_power_peak, once the library is loaded
+_plan = None   # the typed tt_power_peak_plan
+_errstr = None
+
+
+def _library():
+    """Build (if needed) and load the kernel; type its C functions once."""
+    global _fn, _plan, _errstr
+    if _fn is None:
+        from thrifty_tpu_torch import _build
+
+        lib = _build.load("power_peak")
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.tt_power_peak.restype = ctypes.c_int
         lib.tt_power_peak.argtypes = [p] * 9 + [i64] * 4 + [ctypes.c_int, p]
+        lib.tt_power_peak_plan.restype = None
+        lib.tt_power_peak_plan.argtypes = [p] * 4 + [i64] * 4 + [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.tt_error_string.restype = ctypes.c_char_p
         lib.tt_error_string.argtypes = [ctypes.c_int]
-        lib._tt_typed = True
-    return lib
+        _plan, _errstr = lib.tt_power_peak_plan, lib.tt_error_string
+        _fn = lib.tt_power_peak
+    return _fn
+
+
+def _operands(x, layout):
+    """(re pointer, im pointer, row stride, element stride, interleaved,
+    tensors to keep alive) as the kernel reads ``x`` in ``layout``."""
+    if layout == "interleaved":
+        ptr = x.data_ptr()  # view_as_real(x): [B, N, 2] float32, zero-copy
+        return ptr, ptr + 4, 2 * x.stride(0), 2, 1, ()
+    re = x.real.contiguous()
+    im = x.imag.contiguous()
+    return re.data_ptr(), im.data_ptr(), x.shape[1], 1, 0, (re, im)
+
+
+def kernel_plan(x, mask, stats_mask=None, layout="interleaved"):
+    """The launch plan the kernel itself computes for these operands on
+    the current CUDA device: (S, columns per CTA, vector path?, SMs
+    counted).  Tests hold it against :func:`cluster_plan` and
+    :func:`vector_path`."""
+    _library()
+    dev = x.device
+    mask = _as_mask(mask, dev)
+    smask = None if stats_mask is None else _as_mask(stats_mask, dev,
+                                                     allow_empty=True)
+    re_ptr, im_ptr, row_stride, elem_stride, inter, _ = _operands(x, layout)
+    out = (ctypes.c_int * 4)()
+    _plan(re_ptr, im_ptr, mask.flags.data_ptr(),
+          None if smask is None else smask.flags.data_ptr(), x.shape[0],
+          x.shape[1], row_stride, elem_stride, inter, out)
+    return out[0], out[1], bool(out[2]), out[3]
 
 
 def _launch(x, mask, smask, layout):
     global launches
-    lib = _library()
-    b, n = x.shape
     dev = x.device
-    idx = torch.empty(b, dtype=torch.int32, device=dev)
-    peak = torch.empty(b, dtype=torch.float32, device=dev)
-    total = torch.empty(b, dtype=torch.float32, device=dev)
-    outs = [idx, peak, total]
-    if smask is not None:
-        outs += [torch.empty(b, dtype=torch.float32, device=dev),
-                 torch.empty(b, dtype=torch.float32, device=dev)]
-    if layout == "interleaved":
-        y = torch.view_as_real(x)  # [B, N, 2] float32, zero-copy
-        re_ptr = y.data_ptr()
-        im_ptr = re_ptr + 4
-        row_stride, elem_stride, interleaved = 2 * x.stride(0), 2, 1
-    else:
-        re = x.real.contiguous()
-        im = x.imag.contiguous()
-        re_ptr, im_ptr = re.data_ptr(), im.data_ptr()
-        row_stride, elem_stride, interleaved = n, 1, 0
-    spow_ptr = outs[3].data_ptr() if smask is not None else None
-    smag_ptr = outs[4].data_ptr() if smask is not None else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tt_power_peak(
-            re_ptr, im_ptr, mask.flags.data_ptr(),
-            None if smask is None else smask.flags.data_ptr(),
-            idx.data_ptr(), peak.data_ptr(), total.data_ptr(),
-            spow_ptr, smag_ptr, b, n, row_stride, elem_stride,
-            interleaved, stream)
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(x, mask, smask, layout)
+    fn = _library()
+    b, n = x.shape
+    # One output buffer per call: rows idx (int32 view), peak, total
+    # [, stat_pow, stat_mag]; unbind makes the row views in one call.
+    out = torch.empty((3 if smask is None else 5, b), dtype=torch.float32,
+                      device=dev)
+    re_ptr, im_ptr, row_stride, elem_stride, inter, _keep = _operands(
+        x, layout)
+    base, step = out.data_ptr(), 4 * b
+    stats = smask is not None
+    err = fn(re_ptr, im_ptr, mask.flags.data_ptr(),
+             smask.flags.data_ptr() if stats else None, base, base + step,
+             base + 2 * step, base + 3 * step if stats else None,
+             base + 4 * step if stats else None, b, n, row_stride,
+             elem_stride, inter, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("power_peak kernel launch failed: {} ({})".format(
-            lib.tt_error_string(err).decode(), err))
+            _errstr(err).decode(), err))
     if b:
         launches += 1
-    return tuple(outs)
+    rows = out.unbind(0)
+    return (rows[0].view(torch.int32),) + rows[1:]

@@ -34,14 +34,14 @@ import time as time_mod
 import numpy as np
 import torch
 
-from thrifty_tpu.config import settings as settings_mod
-from thrifty_tpu.config.parsers import normalize_freq_range
-from thrifty_tpu.io import card as card_io
-from thrifty_tpu.io.stream import StreamPump
-from thrifty_tpu_torch.device import DEVICES, resolve_device
+from thrifty_tpu_torch.config import settings as settings_mod
+from thrifty_tpu_torch.config.parsers import normalize_freq_range
+from thrifty_tpu_torch.device import DEVICES, as_device, resolve_device
 from thrifty_tpu_torch.dsp import carrier, iq, power_peak, unfold, \
     xcorr
 from thrifty_tpu_torch.dsp import fft as fft_mod
+from thrifty_tpu_torch.io import card as card_io
+from thrifty_tpu_torch.io.stream import StreamPump
 from thrifty_tpu_torch.pipeline.host import PinnedUpload, open_source
 
 
@@ -59,10 +59,10 @@ class CarrierGate:
     """
 
     def __init__(self, block_len, carrier_window, carrier_thresh,
-                 history_len=None, device="cpu"):
+                 history_len=None, device="cuda"):
         self.block_len = block_len
         self.history_len = history_len  # needed for gate_stream only
-        self.device = torch.device(device)
+        self.device = as_device(device)
         self._mask = power_peak.Mask(
             carrier.window_mask(carrier_window, block_len), self.device)
         self._thresh = tuple(carrier_thresh)

@@ -31,14 +31,14 @@ import sys
 
 import numpy as np
 
-from thrifty_tpu.config import settings as settings_mod
-from thrifty_tpu.config.parsers import normalize_freq_range
-from thrifty_tpu.dsp import util
-from thrifty_tpu.io import tpl as tpl_io
-from thrifty_tpu.io import card, toad
-from thrifty_tpu.io.stream import StreamPump, prefetch_iter
+from thrifty_tpu_torch.config import settings as settings_mod
+from thrifty_tpu_torch.config.parsers import normalize_freq_range
 from thrifty_tpu_torch.device import DEVICES, resolve_device
+from thrifty_tpu_torch.dsp import util
 from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+from thrifty_tpu_torch.io import card, toad
+from thrifty_tpu_torch.io import tpl as tpl_io
+from thrifty_tpu_torch.io.stream import StreamPump, prefetch_iter
 from thrifty_tpu_torch.pipeline.host import PinnedUpload, open_source
 
 

@@ -16,16 +16,17 @@ def open_source(args, config, path):
 
     Returns ``None`` after printing ``stream error:`` when a live source
     cannot be opened (the CLIs then exit 1, like a stream that dies).
-    The live sources are the JAX package's numpy host modules.
+    The live sources are the port's numpy host modules (``io.rtlsdr``,
+    ``io.rtl_tcp``).
     """
     if args.rtlsdr is not None:
-        from thrifty_tpu.io import rtlsdr
+        from thrifty_tpu_torch.io import rtlsdr
 
         return rtlsdr.make_source_cli(
             args.rtlsdr, config, bias_tee=args.bias_tee, quiet=args.quiet,
             ppm=args.ppm)
     if args.rtl_tcp is not None:
-        from thrifty_tpu.io import rtl_tcp
+        from thrifty_tpu_torch.io import rtl_tcp
 
         return rtl_tcp.make_source_cli(
             args.rtl_tcp, config, bias_tee=args.bias_tee,

@@ -5,9 +5,10 @@ thrifty/kitchen_sink.py:42-87).
 
 :func:`detect_all` drives the port's ``BatchDetector`` (one batch in
 flight, each ``PendingBatch`` resolved in the drain); :func:`postdetect`
-runs the JAX package's numpy stages and the port's ``pos``.  Every stage
-is injectable; pass ``pos_estimator=functools.partial(pos.solve_batched,
-device=...)`` for the batched solver.
+runs the port's numpy stages (copies of the JAX package's) and its
+``pos``.  Every stage is injectable; pass
+``pos_estimator=functools.partial(pos.solve_batched, device=...)`` for
+the batched solver.
 """
 
 from __future__ import annotations
@@ -17,10 +18,10 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from thrifty_tpu.io import card, toad
-from thrifty_tpu.pipeline import identify as identify_mod
-from thrifty_tpu.pipeline import matchmaker as matchmaker_mod
-from thrifty_tpu.pipeline import tdoa as tdoa_mod
+from thrifty_tpu_torch.io import card, toad
+from thrifty_tpu_torch.pipeline import identify as identify_mod
+from thrifty_tpu_torch.pipeline import matchmaker as matchmaker_mod
+from thrifty_tpu_torch.pipeline import tdoa as tdoa_mod
 from thrifty_tpu_torch.pipeline import pos as pos_mod
 
 

@@ -1,17 +1,22 @@
 """Position estimation from TDOA values on the port (counterpart of
 ``thrifty_tpu.pipeline.pos``).
 
+Each TDOA constrains the transmitter to a hyperbola; position is the
+bounded nonlinear least-squares solution over all receiver pairs, with
+DOP (dilution of precision) from the geometry matrix (reference
+thrifty/pos_est.py:31-125).
+
 The host solvers (:func:`solve`, :func:`solve_group`, :func:`solve_1d`,
-:func:`dop`) and the ``.pos`` I/O are the JAX package's numpy/scipy
-functions, reused by import; that module imports jax only inside its
-batched solver, which the port never calls.
+:func:`dop`) and the ``.pos`` I/O are numpy/scipy, as in the JAX
+package, function for function.
 
 :func:`solve_groups_batched` is the batched multi-start
-Levenberg-Marquardt solver in torch, float64 throughout, on an explicit
-``device``: the JAX solver (``pos.py:291-383``) step for step.  Groups
-are padded to the largest pair count only: eager torch has no compiled
-program per shape, so the JAX power-of-two shape buckets are dropped
-(padding pairs and groups do not change a result; tested).
+Levenberg-Marquardt solver in torch, float64 throughout, on ``device``
+(the card unless the caller asks for the CPU): the JAX solver
+(``pos.py:291-383``) step for step.  Groups are padded to the largest
+pair count only: eager torch has no compiled program per shape, so the
+JAX power-of-two shape buckets are dropped (padding pairs and groups do
+not change a result; tested).
 """
 
 from __future__ import annotations
@@ -20,19 +25,235 @@ import argparse
 import sys
 
 import numpy as np
+import scipy.optimize
 import torch
 
-from thrifty_tpu.pipeline import tdoa as tdoa_mod
-from thrifty_tpu.pipeline.pos import (  # noqa: F401  (re-exported)
-    MAX_DIST, SPEED_OF_LIGHT, EstimationError, _dop_batched,
-    _missing_receivers, dop, load_positions, position_dtype, save_positions,
-    solve, solve_1d, solve_group)
-from thrifty_tpu_torch.device import DEVICES, resolve_device
+from thrifty_tpu_torch.device import DEVICES, as_device, resolve_device
+from thrifty_tpu_torch.pipeline import tdoa as tdoa_mod
+
+SPEED_OF_LIGHT = tdoa_mod.SPEED_OF_LIGHT
+MAX_DIST = 10e3  # search bounds beyond the receiver extent
+
+POSITION_FIELDS = ("group_id", "timestamp", "tx", "dop", "snr", "x", "y", "z")
+
+
+def position_dtype(dims):
+    """Structured dtype of a .pos record with `dims` coordinates
+    (group_id/tx i4, timestamp/dop/snr/coords f8)."""
+    return np.dtype(
+        [(f, "f8" if i > 2 else ("i4" if f != "timestamp" else "f8"))
+         for i, f in enumerate(POSITION_FIELDS[:5 + dims])])
+
+
+class EstimationError(Exception):
+    pass
+
+
+def solve_1d(tdoas, rx_pos):
+    """Closed-form 1-D position for exactly two receivers."""
+    missing = _missing_receivers(tdoas, rx_pos)
+    if missing:
+        # Validate at the same depth as solve_group/_geometry: without
+        # this, a stale 1-D coordinate config would silently position
+        # an unrelated receiver pair's TDOA between rx_pos's own two
+        # coordinates (previously only rescued downstream by dop()'s
+        # incidental KeyError).
+        raise EstimationError(
+            "receiver(s) {} not in coordinate config".format(
+                sorted(missing)))
+    rxids = sorted(rx_pos)
+    r0, r1 = rx_pos[rxids[0]][0], rx_pos[rxids[1]][0]
+    tdoa_m = float(tdoas["tdoa"][0]) * SPEED_OF_LIGHT
+    if r0 > r1:
+        position = (r0 + r1 - tdoa_m) / 2
+    else:
+        position = (r0 + r1 + tdoa_m) / 2
+    return np.array([position]), float(tdoas["snr"][0])
+
+
+def _geometry(tdoas, rx_pos):
+    missing = _missing_receivers(tdoas, rx_pos)
+    if missing:
+        raise EstimationError(
+            "receiver(s) {} not in coordinate config".format(
+                sorted(missing)))
+    rx0 = np.array([rx_pos[int(r)] for r in tdoas["rx0"]], dtype=np.float64)
+    rx1 = np.array([rx_pos[int(r)] for r in tdoas["rx1"]], dtype=np.float64)
+    return rx0, rx1
+
+
+def _missing_receivers(tdoas, rx_pos):
+    """Receiver ids referenced by the TDOA rows but absent from the
+    coordinate config (stale pos-rx.cfg, extra receiver)."""
+    return {int(r) for r in np.concatenate([tdoas["rx0"], tdoas["rx1"]])
+            if int(r) not in rx_pos}
+
+
+def solve_group(tdoas, rx_pos, weighted=False):
+    """Bounded nonlinear least squares with the analytic Jacobian.
+
+    With ``weighted``, residuals are scaled by sqrt(snr) normalized to
+    unit mean -- TDOA noise variance goes as 1/SNR, so this is the
+    maximum-likelihood weighting (resolves the reference's TODO at
+    pos_est.py:59 "use SNR ... as weight").
+    """
+    dims = len(next(iter(rx_pos.values())))
+    uniq = np.unique(np.concatenate([tdoas["rx0"], tdoas["rx1"]]))
+    if len(uniq) < dims + 1:
+        raise EstimationError("underdetermined")
+
+    rx0, rx1 = _geometry(tdoas, rx_pos)
+    coords = np.array(list(rx_pos.values()), dtype=np.float64)
+    lo = coords.min(axis=0) - MAX_DIST
+    hi = coords.max(axis=0) + MAX_DIST
+    # Start at the receiver centroid: always inside the bounds box even
+    # for projected coordinates far from the origin (a fixed origin
+    # guess would make scipy reject the bounds).
+    x0 = coords.mean(axis=0)
+    measured = tdoas["tdoa"] * SPEED_OF_LIGHT
+    if weighted:
+        w = np.sqrt(np.maximum(tdoas["snr"], 1e-12))
+        w = w / np.mean(w)
+    else:
+        w = np.ones(len(tdoas))
+
+    def residuals(pos):
+        d0 = np.linalg.norm(rx0 - pos, axis=1)
+        d1 = np.linalg.norm(rx1 - pos, axis=1)
+        return w * (measured - (d0 - d1))
+
+    def jac(pos):
+        p0, p1 = rx0 - pos, rx1 - pos
+        d0 = np.linalg.norm(p0, axis=1)
+        d1 = np.linalg.norm(p1, axis=1)
+        return w[:, None] * (p0 / d0[:, None] - p1 / d1[:, None])
+
+    res = scipy.optimize.least_squares(
+        residuals, x0, jac=jac, bounds=(lo, hi))
+    return res.x, float(np.mean(tdoas["snr"]))
+
+
+def dop_matrix(pos, rx_pos, rx_pairs):
+    """Covariance-shape matrix inv(G^T G) of the linearized geometry."""
+    pos = np.asarray(pos, dtype=np.float64)
+    rx0 = np.array([rx_pos[int(a)] for a, _ in rx_pairs], dtype=np.float64)
+    rx1 = np.array([rx_pos[int(b)] for _, b in rx_pairs], dtype=np.float64)
+    p0, p1 = rx0 - pos, rx1 - pos
+    d0 = np.linalg.norm(p0, axis=1)
+    d1 = np.linalg.norm(p1, axis=1)
+    g = p0 / d0[:, None] - p1 / d1[:, None]
+    try:
+        return np.linalg.inv(g.T @ g)
+    except np.linalg.LinAlgError:
+        return None
+
+
+def dop(pos, rx_pos, rx_pairs):
+    """Dilution of precision: sqrt(trace(inv(G^T G))); -1 if singular."""
+    m = dop_matrix(pos, rx_pos, rx_pairs)
+    if m is None:
+        return -1.0
+    return float(np.sqrt(np.trace(m)))
+
+
+def _dop_batched(positions, rx0, rx1, mask):
+    """Vectorized DOP over padded groups; -1 where GtG is singular.
+
+    Semantics match :func:`dop`: only an *exactly* singular /
+    non-finite geometry reports -1 -- near-singular geometry returns
+    the (huge) finite DOP so downstream weighting (e.g. the Kalman
+    tracker's R = (std*dop)^2) de-weights the fix instead of trusting
+    it.
+    """
+    p0 = rx0 - positions[:, None, :]
+    p1 = rx1 - positions[:, None, :]
+    d0 = np.maximum(np.linalg.norm(p0, axis=-1), 1e-12)
+    d1 = np.maximum(np.linalg.norm(p1, axis=-1), 1e-12)
+    g = (p0 / d0[..., None] - p1 / d1[..., None]) * mask[..., None]
+    gtg = np.einsum("gpi,gpj->gij", g, g)
+    with np.errstate(all="ignore"):
+        dets = np.linalg.det(gtg)
+    ok = np.isfinite(dets) & (dets != 0.0)
+    dims = gtg.shape[-1]
+    safe = np.where(ok[:, None, None], gtg, np.eye(dims))
+    inv = np.linalg.inv(safe)
+    traces = np.trace(inv, axis1=-2, axis2=-1)
+    ok &= np.isfinite(traces) & (traces >= 0.0)
+    return np.where(ok, np.sqrt(np.where(ok, traces, 1.0)), -1.0)
+
+
+def solve(tdoa_groups, rx_pos, weighted=False, verbose=True):
+    """Solve every TDOA group; returns a structured array of positions.
+
+    ``verbose=False`` silences the per-group failure lines (see
+    :func:`solve_batched`).
+    """
+    num_rx = len(rx_pos)
+    dims = len(next(iter(rx_pos.values())))
+    results = []
+    for group in tdoa_groups:
+        try:
+            if num_rx == 2 and dims == 1:
+                coords, snr = solve_1d(group.tdoas, rx_pos)
+            else:
+                coords, snr = solve_group(group.tdoas, rx_pos,
+                                          weighted=weighted)
+            pairs = list(zip(group.tdoas["rx0"], group.tdoas["rx1"]))
+            dop_est = dop(coords, rx_pos, pairs)
+            results.append(
+                (group.group_id, group.timestamp, group.tx, dop_est, snr)
+                + tuple(coords))
+        except (EstimationError, ValueError, KeyError,
+                np.linalg.LinAlgError) as e:
+            # One pathological group must not abort the whole run.
+            # (Both paths report unknown receivers as EstimationError;
+            # KeyError stays caught as defense in depth for dop()'s
+            # rx_pos lookups.)
+            if verbose:
+                print("Failed to estimate group #{}: {}".format(
+                    group.group_id, e), file=sys.stderr)
+    dtype = position_dtype(dims)
+    if not results:
+        return np.zeros(0, dtype=dtype)
+    return np.array(results, dtype=dtype)
+
+
+def save_positions(stream_or_path, results):
+    """Write .pos lines: group_id timestamp tx dop snr x y [z]."""
+    if isinstance(stream_or_path, str):
+        with open(stream_or_path, "w") as f:
+            return save_positions(f, results)
+    for row in results:
+        fields = list(row)
+        fields[1] = "{:.6f}".format(fields[1])
+        stream_or_path.write(" ".join(str(x) for x in fields) + "\n")
+
+
+def load_positions(stream_or_path):
+    import warnings
+
+    with warnings.catch_warnings():
+        # An empty .pos (no fixes yet) is a normal state, not a warning.
+        warnings.filterwarnings(
+            "ignore", message=".*Empty input file.*")
+        data = np.genfromtxt(stream_or_path, dtype=np.float64)
+    if data.size == 0:
+        # Empty .pos (no fixes yet): 2-D layout by default.
+        dims = 2
+        dtype = position_dtype(dims)
+        return np.zeros(0, dtype=dtype)
+    data = np.atleast_2d(data)
+    dims = data.shape[1] - 5
+    dtype = position_dtype(dims)
+    out = np.zeros(len(data), dtype=dtype)
+    for i, name in enumerate(out.dtype.names):
+        out[name] = data[:, i]
+    return out
 
 
 def solve_groups_batched(tdoa_padded, mask, rx0_pos, rx1_pos, bounds,
                          iters=25, damping=1e-2, weights=None,
-                         device="cpu"):
+                         device="cuda"):
     """Batched multi-start Levenberg-Marquardt multilateration.
 
     All arrays are padded to [G, Pmax]: ``tdoa_padded`` in seconds,
@@ -51,7 +272,7 @@ def solve_groups_batched(tdoa_padded, mask, rx0_pos, rx1_pos, bounds,
     weighted residual wins.
     """
     pos, score = _solve_starts(tdoa_padded, mask, rx0_pos, rx1_pos, bounds,
-                               iters, damping, weights, torch.device(device))
+                               iters, damping, weights, as_device(device))
     dims = pos.shape[-1]
     best = torch.argmin(score, dim=1)
     out = torch.gather(pos, 1, best[:, None, None].expand(-1, 1, dims))
@@ -127,7 +348,7 @@ def _solve_starts(tdoa_padded, mask, rx0_pos, rx1_pos, bounds, iters,
 
 
 def solve_batched(tdoa_groups, rx_pos, iters=30, weighted=False,
-                  verbose=True, device="cpu"):
+                  verbose=True, device="cuda"):
     """Solve many TDOA groups at once with :func:`solve_groups_batched`
     on ``device``; DOP and SNR are filled in on the host.  Groups with
     unknown receivers or too few receivers are skipped (reported unless

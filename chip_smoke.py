@@ -36,6 +36,13 @@ the port on the card:
   ``data.pos``;
 - the batched position solver at 8192 groups against the port on the
   CPU and scipy;
+- the live server (``PositioningServer``, batched solver on the card) on
+  the JAX bench's serve mix at 20k detections against the same server on
+  the CPU, and at 100k (the 10x density), with fixes/s, ms per step and
+  device kernels per step; ``serve --once --track`` through the CLI on
+  tailed ``.toad`` files against the server run in process;
+- ``template_extract`` on the card against the CPU on the full-size
+  capture and on ``rx0.card``; ``doctor --selfcheck --batch 256``;
 - timings of the detect programs, the solver and the CLIs, each printed
   with the card's name and power limit.
 
@@ -1659,6 +1666,340 @@ def options_phase(card_name, tmp, cap, tpl_path, raw_path):
     return per_batch
 
 
+# The live server's mix: bench.py's bench_serve (5 receivers with
+# drifting clocks on an 8000 m circle, a beacon a second and a mobile
+# transmitting at the rate that gives the detection count over 600 s,
+# fed in 5 s chunks).
+SERVE_RX = {i: np.array([np.cos(1.7 * i) * 8000.0, np.sin(1.7 * i) * 8000.0])
+            for i in range(5)}
+SERVE_BEACON = {9: np.array([100.0, 200.0])}
+SERVE_MOBILE = np.array([3000.0, 1000.0])
+SERVE_FREQMAP = {r: {9: (25.0, 35.0), 3: (65.0, 75.0)} for r in SERVE_RX}
+SERVE_STEP_S = 5.0
+
+
+def serve_mix(num_detections, duration=600.0):
+    """Detections of bench_serve's traffic, sorted by timestamp."""
+    from thrifty_tpu_torch import sim
+
+    n_tx = num_detections / len(SERVE_RX)
+    mobile_dt = duration / max(n_tx - duration, 1.0)
+    schedule = [(9, t) for t in np.arange(0.5, duration, 1.0)]
+    schedule += [(3, t) for t in np.arange(0.7, duration, mobile_dt)]
+    det = sim.synth_network(
+        SERVE_RX, {**SERVE_BEACON, 3: SERVE_MOBILE}, schedule, 2.4e6,
+        clock_offsets={1: 777.0, 2: -4000.0},
+        clock_drifts={1: 2e-6, 2: -1e-6}, soa_noise=0.01)
+    det["carrier_bin"] = np.where(det["txid"] == 9, 30, 70)
+    return det[np.argsort(det["timestamp"], kind="stable")]
+
+
+def run_serve(det, device, count_kernels=False):
+    """Feed ``det`` to the port's PositioningServer in 5 s chunks,
+    stepping after each, as a live deployment's tailer does.  Returns
+    (fixes, seconds, [ms per step], solver seconds, and with
+    ``count_kernels`` (device kernels, their summed device seconds) from
+    torch.profiler)."""
+    from thrifty_tpu_torch.pipeline import server
+
+    srv = server.PositioningServer(
+        SERVE_RX, SERVE_BEACON, freqmap=SERVE_FREQMAP, match_window=0.05,
+        window_s=30.0, settle_s=1.0, solver="auto", device=device)
+    edges = np.searchsorted(det["timestamp"], np.arange(
+        det["timestamp"][0], det["timestamp"][-1] + SERVE_STEP_S,
+        SERVE_STEP_S))
+    solve = server.pos_mod.solve_batched
+    solver_s = [0.0]
+
+    def timed_solve(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = solve(*args, **kwargs)   # ends in a copy to the host
+        solver_s[0] += time.perf_counter() - t0
+        return out
+
+    fixes, steps = [], []
+    prof = None
+    if count_kernels:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    server.pos_mod.solve_batched = timed_solve
+    try:
+        t_run = time.perf_counter()
+        for a, b in zip(edges[:-1], edges[1:]):
+            t0 = time.perf_counter()
+            srv.feed(det[a:b])
+            fixes.append(srv.step())
+            steps.append((time.perf_counter() - t0) * 1e3)
+        seconds = time.perf_counter() - t_run
+    finally:
+        server.pos_mod.solve_batched = solve
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+    kernels = None
+    if prof is not None:
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = (len(device),
+                   sum(e.time_range.elapsed_us() for e in device) / 1e6)
+    return np.concatenate(fixes), seconds, steps, solver_s[0], kernels
+
+
+def sorted_fixes(fixes):
+    return fixes[np.lexsort((fixes["tx"], fixes["timestamp"]))]
+
+
+def compare_fixes(got, ref, what, xy_atol):
+    """(timestamp, tx) sets equal, x/y within ``xy_atol`` m; returns the
+    largest distance and the count beyond 1e-6 m."""
+    got, ref = sorted_fixes(got), sorted_fixes(ref)
+    check(len(got) == len(ref), "{}: {} vs {} fixes".format(
+        what, len(got), len(ref)))
+    check(np.array_equal(got["timestamp"], ref["timestamp"])
+          and np.array_equal(got["tx"], ref["tx"]),
+          what + ": (timestamp, tx) sets differ")
+    dist = np.hypot(got["x"] - ref["x"], got["y"] - ref["y"])
+    worst = float(dist.max()) if len(dist) else 0.0
+    check(worst <= xy_atol, "{}: fixes {:.3g} m apart (limit {:g})".format(
+        what, worst, xy_atol))
+    return worst, int((dist > 1e-6).sum())
+
+
+def serve_report(card_name, label, det, fixes, seconds, steps, solver_s,
+                 kernels=None):
+    print("serve {}: {} detections -> {} fixes in {} steps, {:.4g} s: "
+          "{:.6g} fixes/s, {:.6g} detections/s; ms per step median "
+          "{:.3f}, p90 {:.3f}, max {:.3f}; solver {:.4g} s ({:.1%} of the "
+          "run); {}".format(
+              label, len(det), len(fixes), len(steps), seconds,
+              len(fixes) / seconds, len(det) / seconds,
+              float(np.median(steps)), float(np.percentile(steps, 90)),
+              max(steps), solver_s, solver_s / seconds, card_name))
+
+
+def serve_kernels(card_name, label, det, seconds):
+    """Device kernels per step and the card's busy share of the run
+    (kernel time summed by torch.profiler over a second, profiled run,
+    against the unprofiled run's ``seconds``)."""
+    _, _, steps, _, (kernels, busy) = run_serve(det, torch.device("cuda"),
+                                                count_kernels=True)
+    print("serve {}: {:.1f} device kernels per step ({} over {} steps), "
+          "{:.4g} s of kernel time: busy share {:.4f}, idle share {:.4f} "
+          "of the {:.4g} s run (torch.profiler); {}".format(
+              label, kernels / len(steps), kernels, len(steps), busy,
+              busy / seconds, 1 - busy / seconds, seconds, card_name))
+
+
+def serve_phase(card_name):
+    """The live server on bench_serve's mix: 20k detections on the card
+    and on the CPU (the same fixes), 100k (the 10x density) on the card
+    and on the CPU; host clock, set-up excluded."""
+    phase("serve")
+    from thrifty_tpu_torch.dsp import power_peak as pp
+
+    dev = torch.device("cuda")
+    det = serve_mix(20000)
+    run_serve(det[det["timestamp"] < 60.0], dev)   # warm-up, 12 steps
+    pp.launches = 0
+    fixes, seconds, steps, solver_s, _ = run_serve(det, dev)
+    check(pp.launches == 0, "serve launched the power/peak kernel")
+    serve_report(card_name, "20k cuda", det, fixes, seconds, steps,
+                 solver_s)
+    serve_kernels(card_name, "20k cuda", det, seconds)
+    ref, *cpu = run_serve(det, "cpu")
+    serve_report(card_name, "20k cpu", det, ref, *cpu)
+    worst, beyond = compare_fixes(fixes, ref, "serve 20k cuda vs cpu", 1e-4)
+    mobile = fixes[fixes["tx"] == 3]
+    err = np.hypot(mobile["x"] - SERVE_MOBILE[0],
+                   mobile["y"] - SERVE_MOBILE[1])
+    check(len(mobile) > 0 and err.max() < 15.0,
+          "a mobile fix {:.3g} m from the transmitter".format(err.max()))
+    print("serve 20k: cuda and cpu give the same {} fixes (timestamp, tx); "
+          "x/y max {:.3g} m apart, {} beyond 1e-6 m; {} mobile fixes, all "
+          "within {:.3g} m of the transmitter (limit 15 m)".format(
+              len(fixes), worst, beyond, len(mobile), err.max()))
+    det = serve_mix(100000)
+    out = {}
+    for name in ("cuda", "cpu"):
+        out[name] = run_serve(det, dev if name == "cuda" else "cpu")
+        serve_report(card_name, "100k " + name, det, *out[name])
+    serve_kernels(card_name, "100k cuda", det, out["cuda"][1])
+    worst, beyond = compare_fixes(out["cuda"][0], out["cpu"][0],
+                                  "serve 100k cuda vs cpu", math.inf)
+    print("serve 100k: the same (timestamp, tx) sets on cuda and cpu; x/y "
+          "max {:.3g} m apart, {} beyond 1e-6 m".format(worst, beyond))
+
+
+def serve_cli_phase(card_name, tmp):
+    """``serve --once --track`` through the port's CLI on .toad files
+    written by the port's io.toad (bench_serve's 20k mix, the window
+    widened to hold all of it), against the same server run in process
+    on what a ToadTailer reads from those files."""
+    phase("serve CLI")
+    import contextlib
+    import io
+
+    from thrifty_tpu_torch.cli import main
+    from thrifty_tpu_torch.io import toad
+    from thrifty_tpu_torch.pipeline import identify, pos, server, tdoa, \
+        track
+
+    det = serve_mix(20000)
+    d = os.path.join(tmp, "serve")
+    os.makedirs(d)
+    paths = []
+    for rxid in SERVE_RX:
+        paths.append(os.path.join(d, "rx{}.toad".format(rxid)))
+        toad.save(paths[-1], det[det["rxid"] == rxid])
+    cfg = {name: os.path.join(d, name) for name in (
+        "pos-rx.cfg", "pos-beacon.cfg", "freq-map.cfg")}
+    for name, table in (("pos-rx.cfg", SERVE_RX),
+                        ("pos-beacon.cfg", SERVE_BEACON)):
+        with open(cfg[name], "w") as f:
+            f.writelines("{}: {!r} {!r}\n".format(k, float(p[0]), float(p[1]))
+                         for k, p in table.items())
+    with open(cfg["freq-map.cfg"], "w") as f:
+        f.write("9: 25 - 35\n3: 65 - 75\n" + "".join(
+            "@{}: 0\n".format(r) for r in SERVE_RX))
+    out, trk = os.path.join(d, "live.pos"), os.path.join(d, "live.track")
+    log = io.StringIO()   # one "fix:" line per fix
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        rc = main(["serve"] + paths + [
+            "-o", out, "--track", trk, "-r", cfg["pos-rx.cfg"], "-b",
+            cfg["pos-beacon.cfg"], "-m", cfg["freq-map.cfg"],
+            "--match-window", "0.05", "--history", "700", "--once",
+            "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, "serve --once failed: " + log.getvalue()[-2000:])
+    with open(cfg["freq-map.cfg"]) as f:
+        freqmap = identify.load_freqmap(f)
+    srv = server.PositioningServer(
+        tdoa.load_pos_config(cfg["pos-rx.cfg"]),
+        tdoa.load_pos_config(cfg["pos-beacon.cfg"]), freqmap=freqmap,
+        match_window=0.05, window_s=700.0, settle_s=0.0, device="cuda")
+    srv.feed(server.ToadTailer(paths).poll())
+    ref = srv.step()
+    got = pos.load_positions(out)
+    worst, _ = compare_fixes(got, ref, "serve --once vs in process", 1e-6)
+    check(log.getvalue().count("fix: ") == len(got),
+          "serve printed another count of fixes")
+    lines = list(track.live_update({}, ref))
+    with open(trk) as f:
+        written = f.read().splitlines()
+    check(len(written) == len(lines) and np.allclose(
+        np.array([ln.split() for ln in written], float),
+        np.array([ln.split() for ln in lines], float), rtol=0, atol=2e-3),
+        "serve --track differs from the in-process tracks")
+    print("serve --once --track --device cuda on 5 tailed .toad files ({} "
+          "detections): {} fixes and {} track lines, as the in-process "
+          "server (x/y within {:.3g} m); {:.3f} s, set-up included; "
+          "{}".format(len(det), len(got), len(written), worst, seconds,
+                      card_name))
+
+
+def template_extract_phase(card_name, tmp):
+    """``template_extract`` on the card against the CPU, on the full-size
+    capture and on tests/golden/input/rx0.card: the same block, the
+    template within 1e-5 relative, two power/peak launches per batch."""
+    phase("template_extract")
+    import contextlib
+    import io
+
+    from thrifty_tpu_torch.cli import main
+    from thrifty_tpu_torch.dsp import power_peak as pp
+    from thrifty_tpu_torch.io import card
+
+    per_batch = None
+    for name, path, tpl in (
+            ("full", os.path.join(tmp, "full.card"),
+             os.path.join(tmp, "template.npy")),
+            ("rx0", os.path.join(INPUT, "rx0.card"),
+             os.path.join(INPUT, "template.npy"))):
+        batches = math.ceil(len(card.read_card(path)[0]) / BATCH)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            npy = os.path.join(tmp, "tpl_{}_{}.npy".format(name, dev))
+            buf = io.StringIO()
+            pp.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main(["template_extract", path, "-o", npy, "-c",
+                           os.path.join(INPUT, "detector.cfg"),
+                           "--template", tpl, "--batch-size", str(BATCH),
+                           "--device", dev])
+            seconds = time.perf_counter() - t0
+            check(rc == 0, "template_extract {} {} failed: {}".format(
+                name, dev, buf.getvalue()))
+            line = [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("Captured")]
+            check(len(line) == 1, "template_extract printed no block")
+            runs[dev] = (line[0].split("#")[1].split()[0], np.load(npy),
+                         seconds, pp.launches)
+        block, got, seconds, launches = runs["cuda"]
+        check(launches == 2 * batches, "template_extract {}: {} launches for "
+              "{} batches".format(name, launches, batches))
+        check(block == runs["cpu"][0], "template_extract {}: block {} on the "
+              "card, {} on the cpu".format(name, block, runs["cpu"][0]))
+        ref = runs["cpu"][1]
+        rel = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(got.shape == ref.shape and rel <= 1e-5,
+              "template_extract {}: template off by {:.3g} relative".format(
+                  name, rel))
+        if name == "rx0":
+            golden = np.load(os.path.join(GOLDEN, "tools",
+                                          "template_extracted.npy"))
+            check(np.max(np.abs(got - golden)) <= 1e-5 * np.max(
+                np.abs(golden)), "rx0: template off the reference golden")
+        per_batch = launches / batches
+        print("template_extract {}: block #{} on cuda and cpu, template "
+              "within {:.3g} relative; {} power/peak launches in {} batches; "
+              "cuda {:.3f} s, cpu {:.3f} s (CLI, set-up included); {}".format(
+                  name, block, rel, launches, batches, seconds,
+                  runs["cpu"][2], card_name))
+    return {"template_extract": per_batch}
+
+
+# doctor --selfcheck's power/peak launches: the detector check (one
+# batch), the pipeline check (one batch of the detect CLI), the selfcheck's
+# kernel against plain in two layouts, and its detector on the card.
+DOCTOR_BATCHES = 4
+
+
+def doctor_phase(card_name):
+    phase("doctor")
+    import contextlib
+    import io
+
+    from thrifty_tpu_torch.cli import main
+    from thrifty_tpu_torch.dsp import power_peak as pp
+
+    buf = io.StringIO()
+    pp.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["doctor", "--selfcheck", "--batch", str(BATCH), "--json"])
+    seconds = time.perf_counter() - t0
+    launches = pp.launches
+    data = json.loads(buf.getvalue().strip().splitlines()[-1])
+    for d in data:
+        print("doctor {}: {} ({})".format(d["check"], "ok" if d["ok"] else
+                                          "FAIL", d["detail"]))
+    check(rc == 0 and all(d["ok"] for d in data), "doctor failed")
+    check([d["check"] for d in data] == [
+        "versions", "devices", "native", "kernel-build", "detector",
+        "pipeline", "selfcheck"], "doctor ran other checks")
+    check(launches == 2 * DOCTOR_BATCHES,
+          "doctor: {} power/peak launches".format(launches))
+    print("doctor --selfcheck --batch {}: every check ok, rc 0, {} power/peak "
+          "launches ({} batches), {:.2f} s; {}".format(
+              BATCH, launches, DOCTOR_BATCHES, seconds, card_name))
+    return {"doctor": launches / DOCTOR_BATCHES}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1703,6 +2044,10 @@ def main(argv=None):
         paths.update(code_division_phase())
         chain_phase(tmp)
         solver_phase(card_name)
+        serve_phase(card_name)
+        serve_cli_phase(card_name, tmp)
+        paths.update(template_extract_phase(card_name, tmp))
+        paths.update(doctor_phase(card_name))
         timing_phase(card_name, tmp, cap, template, raw_path)
         program_timings(card_name, template)
         kernel["paths"] = sorted(paths)

@@ -101,13 +101,15 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
 
 
 ENTRY_POINTS = ("BatchDetector", "from_numpy_state", "CarrierGate",
-                "solve_groups_batched", "solve_batched")
+                "solve_groups_batched", "solve_batched", "PositioningServer",
+                "template_extract", "doctor_detector")
 
 
-def entry_point_calls():
+def entry_point_calls(tmp_path):
     """Each entry point with a ``device`` argument, called without it."""
     from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
-    from thrifty_tpu_torch.pipeline import capture, pos, tdoa
+    from thrifty_tpu_torch.pipeline import capture, doctor, pos, server, tdoa
+    from thrifty_tpu_torch.pipeline import template_extract
 
     tpl = np.ones(64)
     cfg = DetectorConfig(block_len=512, history_len=128,
@@ -127,17 +129,24 @@ def entry_point_calls():
             np.zeros((1, 3)), np.ones((1, 3), bool), np.zeros((1, 3, 2)),
             np.ones((1, 3, 2)), (np.full(2, -1e4), np.full(2, 1e4))),
         "solve_batched": lambda: pos.solve_batched([group], rx),
+        "PositioningServer": lambda: server.PositioningServer(
+            rx, {9: np.zeros(2)}),
+        "template_extract": lambda: template_extract._main([
+            os.path.join(INPUT, "rx0.card"), "-o",
+            str(tmp_path / "tpl.npy"), "--carrier-window", "7-110"]),
+        "doctor_detector": lambda: doctor._detector(2),
     }
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
-def test_entry_points_default_to_the_card(monkeypatch, name):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path, name):
     """Without ``device=`` every entry point asks for the card, and on a
     machine without one that raises instead of running on the CPU."""
-    call = entry_point_calls()[name]
+    call = entry_point_calls(tmp_path)[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         call()
+    assert not os.listdir(tmp_path)
 
 
 def test_resolve_device():
@@ -187,9 +196,11 @@ def test_cli_never_imports_jax(tmp_path):
     CLI (.card input; raw input with --device-unfold, --gate-capacity
     and integer sync; a template bank with --emit-txid; the maximise
     interpolator), its capture CLI (host and device unfold), identify
-    -> match -> tdoa -> pos --batched on the golden chain, and
-    kitchen_sink, then importing the port's live-source modules and
-    every port module, works and loads neither."""
+    -> match -> tdoa -> pos --batched on the golden chain, serve --once
+    --track on the golden .toad files, track, the four analyses, gold,
+    template_generate, template_extract, scope, doctor, help for every
+    command, and kitchen_sink, then importing the port's live-source
+    modules and every port module, works and loads neither."""
     from thrifty_tpu import sim
     from thrifty_tpu.dsp import iq
     from thrifty_tpu.dsp import template as template_mod
@@ -235,14 +246,41 @@ def test_cli_never_imports_jax(tmp_path):
                      "7-110", "--batch-size", "16", "--quiet", "-o",
                      str(tmp_path / "gated.card"), "--device", "cpu"]
                     + extra)
+    golden = [os.path.join(GOLDEN, "rx%d.toad" % i) for i in range(3)]
+    runs += [["serve"] + golden + [
+                 "-o", chain + "/live.pos", "--track", chain + "/live.track",
+                 "-r", INPUT + "/pos-rx.cfg", "-b", INPUT + "/pos-beacon.cfg",
+                 "-m", INPUT + "/freq-map.cfg", "--match-window", "0.02",
+                 "--once", "--device", "cpu"],
+             ["track", chain + "/live.pos", "-o", chain + "/data.track"],
+             ["analyze_toads", GOLDEN + "/rx.toads", "--per-rxtx"],
+             ["analyze_tdoa", GOLDEN + "/data.tdoa"],
+             ["analyze_beacon", GOLDEN + "/rx.toads", "0", "1", "9", "-w",
+              "0.02"],
+             ["analyze_detect", INPUT + "/rx0.card", "--blocks", "60",
+              "--template", tpl, "--carrier-window", "7-110", "--save-npz",
+              chain + "/diag.npz"],
+             ["gold", "5", "2", "--stats"],
+             ["template_generate", "5", "0", "-o", chain + "/gen.npy"],
+             ["template_extract", INPUT + "/rx0.card", "-o",
+              chain + "/ext.npy", "--carrier-window", "7-110", "--template",
+              tpl, "--device", "cpu"],
+             ["scope", raw, "--export", chain + "/frame", "--frames", "1",
+              "--block-size", "2048", "--free-run"],
+             ["doctor", "--device", "cpu"]]
     fixes = len(np.atleast_2d(np.loadtxt(os.path.join(GOLDEN, "data.pos"))))
     code = (
         "import pkgutil, sys, importlib\n"
         "for name in ('thrifty_tpu', 'jax', 'jaxlib'):\n"
         "    sys.modules[name] = None  # any import of them raises\n"
-        "from thrifty_tpu_torch.cli import main\n"
+        "from thrifty_tpu_torch.cli import COMMANDS, main\n"
         "for args in {runs!r}:\n"
         "    assert main(args) == 0, args\n"
+        "for command in COMMANDS:\n"
+        "    try:\n"
+        "        main(['help', command])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, command\n"
         "{sink}\n"
         "import thrifty_tpu_torch.io.rtl_tcp, thrifty_tpu_torch.io.rtlsdr\n"
         "import thrifty_tpu_torch\n"
@@ -266,6 +304,15 @@ def test_cli_never_imports_jax(tmp_path):
     txids = np.atleast_2d(np.loadtxt(tmp_path / "bank.toads"))[:, 1]
     assert len(txids) == len(cap.bursts) and np.all(txids == 1)
     assert len(np.atleast_2d(np.loadtxt(tmp_path / "data.pos"))) == fixes
+    # serve on the golden .toad files: the golden chain's fixes.
+    live = np.atleast_2d(np.loadtxt(tmp_path / "live.pos"))
+    ref = np.atleast_2d(np.loadtxt(os.path.join(GOLDEN, "data.pos")))
+    assert live.shape == ref.shape
+    np.testing.assert_array_equal(live[:, :3], ref[:, :3])
+    np.testing.assert_allclose(live[:, 5:], ref[:, 5:], rtol=0, atol=1e-6)
+    assert len(np.loadtxt(tmp_path / "data.track", ndmin=2)) == fixes
+    assert np.load(tmp_path / "ext.npy").shape == (4914,)
+    assert (tmp_path / "frame0000.png").exists()
 
 
 def _jax_package_names(path):

@@ -2,9 +2,10 @@
 their originals, on the same inputs.
 
 The port keeps its own ``config``, ``io``, ``native``, ``dsp.{util,
-gold,template}``, ``dsp.iq.raw_to_iq_host``, ``stats``, ``sim`` and
-``pipeline.{identify,matchmaker,tdoa}`` and the host half of
-``pipeline.pos``, so that it imports nothing of ``thrifty_tpu``.  Each
+gold,template}``, ``dsp.iq.raw_to_iq_host``, ``stats``, ``sim``,
+``pipeline.{identify,matchmaker,tdoa,track,scope}``, the host half of
+``pipeline.pos``, ``oracle.numpy_ref`` and the four ``analysis``
+modules, so that it imports nothing of ``thrifty_tpu``.  Each
 case below runs a copy and its original on the same input: arrays equal
 (bit for bit where the function is deterministic numpy), files
 byte-equal, the host position solver within 1e-9 m.
@@ -23,6 +24,9 @@ import thrifty_tpu_torch.config as tconfig  # noqa: E402
 from test_pos import PAIRS4, RX4, forward_tdoas  # noqa: E402
 from thrifty_tpu import sim as jsim  # noqa: E402
 from thrifty_tpu import stats as jstats  # noqa: E402
+from thrifty_tpu.analysis import beacon_analysis as jbeacon  # noqa: E402
+from thrifty_tpu.analysis import tdoa_analysis as jtdoa_an  # noqa: E402
+from thrifty_tpu.analysis import toads_analysis as jtoads_an  # noqa: E402
 from thrifty_tpu.dsp import gold as jgold  # noqa: E402
 from thrifty_tpu.dsp import iq as jiq  # noqa: E402
 from thrifty_tpu.dsp import template as jtemplate  # noqa: E402
@@ -32,12 +36,18 @@ from thrifty_tpu.io import card as jcard  # noqa: E402
 from thrifty_tpu.io import stream as jstream  # noqa: E402
 from thrifty_tpu.io import toad as jtoad  # noqa: E402
 from thrifty_tpu.io import tpl as jtpl  # noqa: E402
+from thrifty_tpu.oracle import numpy_ref as joracle  # noqa: E402
 from thrifty_tpu.pipeline import identify as jidentify  # noqa: E402
 from thrifty_tpu.pipeline import matchmaker as jmatch  # noqa: E402
 from thrifty_tpu.pipeline import pos as jpos  # noqa: E402
+from thrifty_tpu.pipeline import scope as jscope  # noqa: E402
 from thrifty_tpu.pipeline import tdoa as jtdoa  # noqa: E402
+from thrifty_tpu.pipeline import track as jtrack  # noqa: E402
 from thrifty_tpu_torch import sim as tsim  # noqa: E402
 from thrifty_tpu_torch import stats as tstats  # noqa: E402
+from thrifty_tpu_torch.analysis import beacon_analysis as tbeacon  # noqa: E402
+from thrifty_tpu_torch.analysis import tdoa_analysis as ttdoa_an  # noqa: E402
+from thrifty_tpu_torch.analysis import toads_analysis as ttoads_an  # noqa: E402
 from thrifty_tpu_torch.dsp import gold as tgold  # noqa: E402
 from thrifty_tpu_torch.dsp import iq as tiq  # noqa: E402
 from thrifty_tpu_torch.dsp import template as ttemplate  # noqa: E402
@@ -47,10 +57,13 @@ from thrifty_tpu_torch.io import card as tcard  # noqa: E402
 from thrifty_tpu_torch.io import stream as tstream  # noqa: E402
 from thrifty_tpu_torch.io import toad as ttoad  # noqa: E402
 from thrifty_tpu_torch.io import tpl as ttpl  # noqa: E402
+from thrifty_tpu_torch.oracle import numpy_ref as toracle  # noqa: E402
 from thrifty_tpu_torch.pipeline import identify as tidentify  # noqa: E402
 from thrifty_tpu_torch.pipeline import matchmaker as tmatch  # noqa: E402
 from thrifty_tpu_torch.pipeline import pos as tpos  # noqa: E402
+from thrifty_tpu_torch.pipeline import scope as tscope  # noqa: E402
 from thrifty_tpu_torch.pipeline import tdoa as ttdoa  # noqa: E402
+from thrifty_tpu_torch.pipeline import track as ttrack  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -390,3 +403,106 @@ def test_codes_templates_and_small_helpers():
     assert tutil.snr_db(10.0, 2.0) == jutil.snr_db(10.0, 2.0)
     assert [tutil.fft_bin(i, 16) for i in range(16)] \
         == [jutil.fft_bin(i, 16) for i in range(16)]
+
+
+@pytest.mark.parametrize("fastdet", [False, True], ids=["python", "fastdet"])
+def test_oracle(fastdet):
+    """OracleDetector and FastdetOracleDetector on synthetic blocks (a
+    burst, noise, a peak filter): equal results and soa."""
+    tpl = jtemplate.generate(5, 0, 2.0)
+    cap = jsim.synth_capture(num_blocks=4, bursts_every=2, template=tpl,
+                             block_len=2048, history_len=256,
+                             carrier_bin=40.25, seed=2)
+    weights = np.array([0.3, 0.6, 1.0, 0.6, 0.3])
+    results = {}
+    for name, mod in (("port", toracle), ("jax", joracle)):
+        cls = mod.FastdetOracleDetector if fastdet else mod.OracleDetector
+        for pf in (None, weights / np.linalg.norm(weights)):
+            det = cls(tpl, block_len=2048, history_len=256,
+                      carrier_window=(7, 110), peak_filter=pf)
+            out = [vars(det.detect_block(b)) for b in cap.blocks]
+            out.append(det.soa(np.arange(4), np.array([3, 40, 500, 9]),
+                               np.array([0.1, -0.3, 0.0, 0.49])))
+            results.setdefault(name, []).append(out)
+    assert_same(results["port"], results["jax"])
+    assert any(r["detected"] for r in results["jax"][0][:4])
+    x = np.linspace(-40, 40, 161)
+    assert_same(toracle.dirichlet_kernel(x, 2048, 300),
+                joracle.dirichlet_kernel(x, 2048, 300))
+
+
+def test_track_copy():
+    """KalmanTracker on fixes out of timestamp order (no extrapolation
+    backwards), and the .track text: equal states, equal lines."""
+    rng = np.random.default_rng(3)
+    times = rng.uniform(0, 60, 30)
+    xy = rng.normal(0, 50, (30, 2))
+    dops = rng.uniform(0.05, 3.0, 30)
+    states = {}
+    for name, mod in (("port", ttrack), ("jax", jtrack)):
+        tracker = mod.KalmanTracker(accel_std=0.3, meas_std=9.0)
+        states[name] = [tracker.update(t, p, d)
+                        for t, p, d in zip(times, xy, dops)]
+        states[name].append(tracker.cov)
+    assert_same(states["port"], states["jax"])
+    fixes = np.zeros(30, dtype=jpos.position_dtype(2))
+    fixes["timestamp"], fixes["tx"], fixes["dop"] = times, 3, dops
+    fixes["x"], fixes["y"] = xy[:, 0], xy[:, 1]
+    tracks = jtrack.track_positions(fixes)
+    got, ref = io.StringIO(), io.StringIO()
+    ttrack.save_tracks(got, tracks)
+    jtrack.save_tracks(ref, tracks)
+    assert got.getvalue() == ref.getvalue() and len(ref.getvalue()) > 0
+    assert ttrack.TRACK_FIELDS == jtrack.TRACK_FIELDS
+
+
+def test_analysis_helpers():
+    """The analyses' statistics on the golden rx.toads and data.tdoa:
+    equal printed stats, per-(rx, tx) splits, beacon pairs and clock-model
+    reports, TDOA stats."""
+    det = jtoad.load_toads(os.path.join(GOLDEN, "rx.toads"))
+    got, ref = io.StringIO(), io.StringIO()
+    ttoads_an.print_stats(det, file=got)
+    jtoads_an.print_stats(det, file=ref)
+    assert got.getvalue() == ref.getvalue()
+    assert_same({str(k): v for k, v in ttoads_an.split_rxtx(det).items()},
+                {str(k): v for k, v in jtoads_an.split_rxtx(det).items()})
+    beacon = int(np.bincount(det["txid"]).argmax())
+    for rx0, rx1 in ((0, 1), (1, 2)):
+        sel, pairs = tbeacon.beacon_match_pairs(det, rx0, rx1, beacon, 0.02)
+        ref_sel, ref_pairs = jbeacon.beacon_match_pairs(det, rx0, rx1,
+                                                        beacon, 0.02)
+        assert_same((sel, pairs), (ref_sel, ref_pairs))
+        assert len(pairs) > 3
+        assert_same(tbeacon.analyze(sel, pairs), jbeacon.analyze(sel, pairs))
+    sdoa = np.concatenate([np.arange(10.0), 500 + np.arange(5.0)])
+    assert_same(tbeacon.find_discontinuities(sdoa),
+                jbeacon.find_discontinuities(sdoa))
+    groups = jtdoa.load_tdoa_groups(os.path.join(GOLDEN, "data.tdoa"))
+    for kw in ({}, {"tx": int(groups[0].tx)},
+               {"timestamp_range": (groups[0].timestamp,
+                                    groups[-1].timestamp - 1.0)}):
+        assert_same(ttdoa_an.tdoa_stats(groups, 0, 1, **kw),
+                    jtdoa_an.tdoa_stats(groups, 0, 1, **kw))
+
+
+def test_scope_copy():
+    """iter_blocks over short reads and the scope's trigger state: the
+    same blocks, triggers, frames and waterfall."""
+    rng = np.random.default_rng(6)
+    raw = rng.integers(0, 256, size=2 * 1024 * 5 + 100, dtype=np.uint8)
+    raw[2 * 1024 * 2:2 * 1024 * 2 + 64] = 255  # a hot block
+
+    class Trickle(io.BytesIO):
+        def read(self, n=-1):
+            return super().read(min(n, 700))
+
+    out = {}
+    for name, mod in (("port", tscope), ("jax", jscope)):
+        blocks = list(mod.iter_blocks(Trickle(raw.tobytes()), 1024))
+        state = mod.ScopeState(1024, 2.4e6, trigger_time=0.9,
+                               trigger_freq=-20.0, waterfall_rows=8)
+        trig = [state.feed(b) for b in blocks]
+        out[name] = (blocks, trig, state.frame, state.waterfall, state.freqs)
+    assert_same(out["port"], out["jax"])
+    assert len(out["jax"][0]) == 5 and any(out["jax"][1])

@@ -1,9 +1,11 @@
 """Command dispatcher of the port: ``python -m thrifty_tpu_torch.cli <command>``.
 
-Mirrors ``thrifty_tpu.cli`` with the commands ported so far, lazily
-importing each command module of the port.  ``identify``, ``match`` and
-``tdoa`` are numpy, copies of the JAX package's modules; ``pos`` adds
-the batched solver on torch.
+Mirrors ``thrifty_tpu.cli`` with every command but ``bench``, lazily
+importing each command module of the port.  The commands that build a
+detector or run the batched solver (``detect``, ``capture``, ``pos
+--batched``, ``serve``, ``template_extract``, ``doctor``) take
+``--device`` (the card by default); the rest are numpy on the host,
+copies of the JAX package's modules.
 """
 
 from __future__ import annotations
@@ -24,10 +26,25 @@ Server commands:
     match             Match detections across receivers
     tdoa              Estimate TDOAs using beacon clock sync
     pos               Estimate positions from TDOAs (--batched: GPU solver)
+    serve             Live positioning: tail .toad files, emit fixes (GPU solver)
+    track             Kalman-smooth position fixes into tracks
+
+Analysis commands:
+    analyze_toads     Statistics on .toads detection data
+    analyze_detect    Per-stage detection diagnostics
+    analyze_beacon    Beacon clock-sync quality between two receivers
+    analyze_tdoa      TDOA precision measurement
+
+Utilities:
+    template_generate Generate a new (ideal) Gold-code template
+    template_extract  Extract a template from captured data (GPU detector)
+    gold              Generate Gold codes / print code stats
+    scope             Live time/freq/histogram scope with triggers
+    doctor            Check this node can run the full pipeline on its card
 
 Use 'python -m thrifty_tpu_torch.cli help <command>' for a command's
-arguments.  Commands not listed here run on the JAX package
-(python -m thrifty_tpu.cli)."""
+arguments.  'bench' still runs on the JAX package
+(python -m thrifty_tpu.cli bench)."""
 
 COMMANDS = {
     "capture": "thrifty_tpu_torch.pipeline.capture",
@@ -36,6 +53,17 @@ COMMANDS = {
     "match": "thrifty_tpu_torch.pipeline.matchmaker",
     "tdoa": "thrifty_tpu_torch.pipeline.tdoa",
     "pos": "thrifty_tpu_torch.pipeline.pos",
+    "serve": "thrifty_tpu_torch.pipeline.server",
+    "track": "thrifty_tpu_torch.pipeline.track",
+    "analyze_toads": "thrifty_tpu_torch.analysis.toads_analysis",
+    "analyze_detect": "thrifty_tpu_torch.analysis.detect_analysis",
+    "analyze_beacon": "thrifty_tpu_torch.analysis.beacon_analysis",
+    "analyze_tdoa": "thrifty_tpu_torch.analysis.tdoa_analysis",
+    "template_generate": "thrifty_tpu_torch.pipeline.template_generate",
+    "template_extract": "thrifty_tpu_torch.pipeline.template_extract",
+    "gold": "thrifty_tpu_torch.pipeline.gold_cli",
+    "scope": "thrifty_tpu_torch.pipeline.scope",
+    "doctor": "thrifty_tpu_torch.pipeline.doctor",
 }
 
 

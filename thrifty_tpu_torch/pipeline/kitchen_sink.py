@@ -3,8 +3,9 @@ identify -> match -> tdoa -> pos (counterpart of
 ``thrifty_tpu.pipeline.kitchen_sink``, reference
 thrifty/kitchen_sink.py:42-87).
 
-:func:`detect_all` drives the port's ``BatchDetector`` (one batch in
-flight, each ``PendingBatch`` resolved in the drain); :func:`postdetect`
+:func:`detect_all` drives the port's ``BatchDetector`` through
+:func:`detect_blocks` (one batch in flight, each ``PendingBatch``
+resolved where it is copied back); :func:`postdetect`
 runs the port's numpy stages (copies of the JAX package's) and its
 ``pos``.  Every stage is injectable; pass
 ``pos_estimator=functools.partial(pos.solve_batched, device=...)`` for
@@ -47,48 +48,61 @@ class PostdetectResult:
     pos: np.ndarray
 
 
+def detect_blocks(detector, blocks, batch_size: int = 256):
+    """The detector's outputs for every block of ``blocks`` [B, N], as
+    numpy arrays [B].
+
+    Complex blocks go to the detector's device in fixed-size batches,
+    the tail padded with silence (dropped from the output); one batch
+    stays in flight and is resolved (``PendingBatch.result()``) and
+    copied back while the next is queued.  The detector treats each
+    block on its own, so the outputs are those of one call on all of
+    ``blocks``.
+    """
+    blocks = np.asarray(blocks, dtype=np.complex64)
+    parts = []
+    pending = None
+    for i in range(0, len(blocks), batch_size):
+        chunk = blocks[i:i + batch_size]
+        n = len(chunk)
+        if n < batch_size:
+            chunk = np.concatenate([chunk, np.zeros(
+                (batch_size - n, blocks.shape[1]), np.complex64)])
+        batch = detector.submit(chunk)
+        if pending is not None:
+            parts.append(_copy_back(*pending))
+        pending = (batch, n)
+    if pending is not None:
+        parts.append(_copy_back(*pending))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _copy_back(batch, n):
+    return {k: v.cpu().numpy()[:n] for k, v in batch.result().items()}
+
+
 def detect_all(cards, detector, batch_size: int = 256,
                txid_from_template: bool = False):
     """Detect on several receivers' captures with the port's detector.
 
-    ``cards``: {rxid: .card path | (timestamps, indices, blocks)}.
-    Complex blocks go to the detector's device in fixed-size batches,
-    the tail padded with silence (dropped from the output); one batch
-    stays in flight and is resolved (``PendingBatch.result()``) and
-    copied back in the drain.  Returns the merged detections; txids are
-    unassigned unless ``txid_from_template`` maps the winning bank
+    ``cards``: {rxid: .card path | (timestamps, indices, blocks)}, each
+    through :func:`detect_blocks`.  Returns the merged detections; txids
+    are unassigned unless ``txid_from_template`` maps the winning bank
     template to the txid.
     """
     parts = []
-
-    def drain(entry):
-        ts_c, idx_c, n, batch, rx = entry
-        out = {k: v.cpu().numpy()[:n] for k, v in batch.result().items()}
-        soa = detector.soa(idx_c, out["corr_sample"], out["corr_offset"])
-        return toad.from_detector_output(
-            ts_c, idx_c, soa, out, rxid=rx,
-            txid_from_template=txid_from_template)
-
-    pending = None
     for rxid, capture in cards.items():
         if isinstance(capture, str):
             ts, idx, blocks = card.read_card_blocks(capture)
         else:
             ts, idx, blocks = capture
-        blocks = np.asarray(blocks, dtype=np.complex64)
-        for i in range(0, len(ts), batch_size):
-            chunk = blocks[i:i + batch_size]
-            n = len(chunk)
-            if n < batch_size:
-                chunk = np.concatenate([
-                    chunk, np.zeros((batch_size - n, blocks.shape[1]),
-                                    np.complex64)])
-            batch = detector.submit(chunk)
-            if pending is not None:
-                parts.append(drain(pending))
-            pending = (ts[i:i + n], idx[i:i + n], n, batch, rxid)
-    if pending is not None:
-        parts.append(drain(pending))
+        if not len(ts):
+            continue
+        out = detect_blocks(detector, blocks, batch_size)
+        soa = detector.soa(idx, out["corr_sample"], out["corr_offset"])
+        parts.append(toad.from_detector_output(
+            ts, idx, soa, out, rxid=rxid,
+            txid_from_template=txid_from_template))
     if not parts:
         return toad.empty(0)
     return np.concatenate(parts)

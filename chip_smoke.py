@@ -43,6 +43,15 @@ the port on the card:
   tailed ``.toad`` files against the server run in process;
 - ``template_extract`` on the card against the CPU on the full-size
   capture and on ``rx0.card``; ``doctor --selfcheck --batch 256``;
+- the multi-rank streaming program (``thrifty_tpu_torch.parallel``), as
+  ``__graft_entry__.dryrun_multichip`` runs JAX's: a gloo world of 4
+  spawned ranks on an (rx=2, time=2) mesh, all on the one card, at a
+  tiny and at the full geometry (plain, gated, the GSPMD twin, 2-code
+  banks; planted bursts across the rank boundary) against ground truth
+  and the single-process detector, the network demo's scenario through
+  identify -> match -> tdoa -> pos against the same chain in one CPU
+  process, and a world of 1 over NCCL; power/peak launches per rank and
+  ms per rank call split into halo exchange, detect and gather;
 - timings of the detect programs, the solver and the CLIs, each printed
   with the card's name and power limit.
 
@@ -2000,6 +2009,560 @@ def doctor_phase(card_name):
     return {"doctor": launches / DOCTOR_BATCHES}
 
 
+# The multi-rank stream phase: __graft_entry__.py's dryrun_multichip on
+# the card, through thrifty_tpu_torch.parallel.  A gloo world of 4 ranks
+# on an (rx=2, time=2) mesh, every rank computing on the one card (NCCL
+# refuses two ranks on one card), then a world of 1 over NCCL.
+MR_MESH = (2, 2)
+MR_TIMEOUT_S = 300        # per world, the ranks' start-up included
+MR_TINY_PER = 3           # blocks per rank at the tiny geometry: the
+                          # halo burst's carrier then also lies in the
+                          # last block of time rank 0, which then holds two
+                          # carrier blocks (over a gate capacity of 1)
+MR_FULL_PER = 64          # blocks per rank at the full geometry
+MR_TIMING_REPS = 5
+TINY = dict(block_len=256, history_len=64, carrier_window=(4, 60),
+            gn_iters=4)
+FULL = dict(carrier_window=(7, 110))
+# scripts/network_demo_torch.py's network (scripts/network_demo.py's).
+NET_RX = {0: np.array([0.0, 0.0]), 1: np.array([9000.0, 500.0]),
+          2: np.array([4000.0, 8000.0]), 3: np.array([-2000.0, 5000.0])}
+NET_BEACON = {9: np.array([4500.0, 3000.0])}
+NET_MOBILE = np.array([6000.0, 2500.0])
+NET_BLOCKS = 80
+FIX_BAR_M = 15.0          # PERF.md section 2 (the JAX demo's worst: 0.93 m)
+MR_EXACT = ("detected", "carrier_detect", "carrier_bin", "corr_sample",
+            "template_idx", "block_idx")
+
+
+def planted_streams(num_rx, total_blocks, halo_block, block_len, history,
+                    template, carrier_bin, amplitude, noise_std, bank=None,
+                    seed=7):
+    """Per-RX streams with one mid-window burst and one HALO burst
+    (__graft_entry__._planted_streams on the port's sim and xcorr).
+
+    The mid burst sits in the middle of block 1's unique correlation
+    window.  The halo burst is placed at the START of ``halo_block``'s
+    unique window, so its code span lies almost entirely in the history
+    region: samples that, in the rank program, arrive from the PREVIOUS
+    time rank through the halo exchange.
+
+    Returns (streams [R, L] complex64, truth list of (rx, block,
+    expected_soa, template_idx)).
+    """
+    from thrifty_tpu_torch import sim
+    from thrifty_tpu_torch.dsp import xcorr
+
+    tlen = (bank.shape[1] if bank is not None else len(template))
+    new_len = block_len - history
+    length = total_blocks * new_len
+    win_lo, _ = xcorr.corr_window(block_len, history, tlen)
+    mid_lag = history + (block_len - tlen - history) // 2
+    halo_lag = win_lo + 8
+
+    rng = np.random.default_rng(seed)
+    streams, truth = [], []
+    for r in range(num_rx):
+        plan = [(1 if total_blocks > 1 else 0, mid_lag, 0)]
+        if halo_block not in (p[0] for p in plan):
+            plan.append((halo_block, halo_lag, 1))
+        bursts = []
+        for b, lag, code in plan:
+            pos = b * new_len - history + lag
+            if pos < 0 or pos + tlen > length:
+                continue
+            spec = {
+                "position": pos,
+                "carrier_bin": carrier_bin + float(rng.uniform(-0.3, 0.3)),
+                "amplitude": amplitude,
+                "phase": float(rng.uniform(0, 2 * np.pi)),
+            }
+            tidx = 0
+            if bank is not None:
+                tidx = code % len(bank)
+                spec["template"] = bank[tidx]
+            bursts.append(spec)
+            truth.append((r, b, float(pos + history), tidx))
+        streams.append(sim.synth_stream(
+            length, bursts, template if bank is None else bank[0],
+            block_len, noise_std, seed=seed + 100 + r))
+    return np.stack(streams).astype(np.complex64), truth
+
+
+def assert_bursts(detector, out, truth, num_rx, total_blocks, tag,
+                  check_template=False):
+    """Planted bursts detected at their ground-truth SoAs (within 0.05
+    samples), no detection away from them (__graft_entry__.
+    _assert_bursts).  Returns the largest SoA error."""
+    det = np.asarray(out["detected"])
+    check(det.shape == (num_rx, total_blocks), "{}: table {}".format(
+        tag, det.shape))
+    planted, worst = set(), 0.0
+    for r, b, exp_soa, tidx in truth:
+        check(det[r, b], "{}: missed the burst of rx {} block {}".format(
+            tag, r, b))
+        soa = detector.soa(out["block_idx"][r, b], out["corr_sample"][r, b],
+                           out["corr_offset"][r, b])
+        worst = max(worst, abs(float(soa) - exp_soa))
+        check(abs(float(soa) - exp_soa) < 0.05, "{}: SoA off at rx {} block "
+              "{}: {} vs {}".format(tag, r, b, float(soa), exp_soa))
+        if check_template:
+            got = int(out["template_idx"][r, b])
+            check(got == tidx, "{}: template {} at rx {} block {}, not "
+                  "{}".format(tag, got, r, b, tidx))
+        planted.add((r, b))
+    # Blocks next to a planted burst may fire on a code-correlation
+    # sidelobe when the burst straddles the block boundary (the halo
+    # burst does, by design); the reference dedups those downstream.
+    allowed = planted | {(r, b + d) for r, b in planted for d in (-1, 1)}
+    for r in range(num_rx):
+        for b in range(total_blocks):
+            check((r, b) in allowed or not det[r, b],
+                  "{}: false positive at rx {} block {}".format(tag, r, b))
+    return worst
+
+
+def network_captures(num_blocks=NET_BLOCKS):
+    """scripts/network_demo_torch.py's captures (seed 11)."""
+    from thrifty_tpu_torch import sim
+
+    schedule = [(9, t) for t in np.arange(0.02, 0.36, 0.05)]
+    schedule += [(3, t) for t in (0.085, 0.185, 0.285)]
+    return sim.synth_rx_captures(
+        NET_RX, {**NET_BEACON, 3: NET_MOBILE}, {9: 30, 3: 70}, schedule,
+        template=sim.make_template(), num_blocks=num_blocks, amplitude=0.6,
+        noise_std=0.04, clock_offsets={1: 777.25, 2: -123.5, 3: 2001.75},
+        clock_drifts={1: 3e-6, 2: -2e-6, 3: 1e-6}, seed=11)
+
+
+def multirank_inputs(d):
+    """Write the worlds' inputs (``inputs.npz``) and runs (``gloo.json``,
+    ``nccl.json``) into ``d``.  Returns (inputs, truths, network
+    captures)."""
+    from thrifty_tpu_torch import sim
+    from thrifty_tpu_torch.dsp import template as template_mod
+
+    num_rx, num_time = MR_MESH
+    tiny_tpl = template_mod.generate(5, 0, 2.0)  # 62 samples
+    tiny_bank = np.stack([template_mod.generate(5, i, 2.0) for i in (0, 1)])
+    full_tpl = sim.make_template()
+    full_bank = template_mod.generate_bank(11, (0, 1), 2.4e6 / CHIP_RATE)
+    tiny_total, full_total = MR_TINY_PER * num_time, MR_FULL_PER * num_time
+    planted = dict(num_rx=num_rx, template=tiny_tpl, block_len=256,
+                   history=64, carrier_bin=40.25, amplitude=0.8,
+                   noise_std=0.05)
+    inputs, truths = {"tiny_tpl": tiny_tpl, "tiny_bank": tiny_bank,
+                      "full_tpl": full_tpl, "full_bank": full_bank}, {}
+    for name, kw in (("tiny", {}), ("tiny_bank", dict(bank=tiny_bank))):
+        inputs[name + "_streams"], truths[name] = planted_streams(
+            total_blocks=tiny_total,
+            halo_block=(num_time - 1) * MR_TINY_PER,
+            **planted, **kw)
+    planted.update(template=full_tpl, block_len=16384, history=4920,
+                   amplitude=0.5)
+    for name, kw in (("full", {}), ("full_bank", dict(bank=full_bank))):
+        inputs[name + "_streams"], truths[name] = planted_streams(
+            total_blocks=full_total,
+            halo_block=(num_time - 1) * MR_FULL_PER, **planted, **kw)
+    caps = network_captures()
+    inputs["net_streams"] = np.stack([
+        caps[r].blocks[:, 4920:].reshape(-1)
+        for r in sorted(caps)]).astype(np.complex64)
+    np.savez(os.path.join(d, "inputs.npz"), **inputs)
+
+    def run(name, template, streams, config, per, program="stream",
+            mesh=MR_MESH):
+        return dict(name=name, template=template, input=streams,
+                    config=config, per_shard=per, program=program,
+                    mesh=list(mesh))
+
+    gloo = [run("tiny", "tiny_tpl", "tiny_streams", TINY, MR_TINY_PER),
+            run("tiny_gated", "tiny_tpl", "tiny_streams",
+                dict(TINY, gate_capacity=1), MR_TINY_PER),
+            run("tiny_twin", "tiny_tpl", "tiny_streams", TINY, MR_TINY_PER,
+                "gspmd"),
+            run("tiny_bank", "tiny_bank", "tiny_bank_streams", TINY,
+                MR_TINY_PER),
+            run("full", "full_tpl", "full_streams", FULL, MR_FULL_PER),
+            run("full_twin", "full_tpl", "full_streams", FULL, MR_FULL_PER,
+                "gspmd"),
+            run("full_bank", "full_bank", "full_bank_streams", FULL,
+                MR_FULL_PER),
+            run("edge", "full_tpl", "net_streams", FULL,
+                NET_BLOCKS // num_time)]
+    nccl = [run("nccl_full", "full_tpl", "full_streams", FULL, full_total,
+                mesh=(1, 1)),
+            run("nccl_batch", "full_tpl", "full_streams", FULL, 0, "batch",
+                mesh=(1, 1))]
+    for name, runs in (("gloo", gloo), ("nccl", nccl)):
+        with open(os.path.join(d, name + ".json"), "w") as f:
+            json.dump(dict(runs=runs, timed="full" if name == "gloo"
+                           else "nccl_full"), f)
+    return inputs, truths, caps
+
+
+def multirank_rank(rank, world, backend, d, device):
+    """One rank of a world of the multi-rank phase (a spawned process):
+    every run of ``<backend>.json`` through the port's entry points, the
+    power/peak launches of each counted from 0, then the timed run split
+    into halo exchange, detect and gather; saves ``<backend>_<rank>.npz``.
+    """
+    import torch.distributed as dist
+
+    from thrifty_tpu_torch import sim
+    from thrifty_tpu_torch.dsp import power_peak as pp
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+    from thrifty_tpu_torch.parallel import distributed, mesh as mesh_mod, \
+        sharded
+
+    distributed.initialize(
+        init_method="file://" + os.path.join(d, backend + ".store"),
+        num_processes=world, process_id=rank, backend=backend,
+        device=device)
+    with open(os.path.join(d, backend + ".json")) as f:
+        spec = json.load(f)
+    inputs = np.load(os.path.join(d, "inputs.npz"))
+    meshes, saved, timed = {}, {}, None
+    for run in spec["runs"]:
+        key = tuple(run["mesh"])
+        if key not in meshes:  # every rank makes the same groups in order
+            meshes[key] = mesh_mod.make_mesh(*key, device=device)
+        m = meshes[key]
+        config = dict(run["config"], carrier_window=tuple(
+            run["config"]["carrier_window"]))
+        det = BatchDetector(inputs[run["template"]],
+                            DetectorConfig(**config), device=device)
+        streams = inputs[run["input"]]
+        if run["program"] == "batch":
+            # Blocks that carry their halo: receiver 0's first 64.
+            fn = sharded.batch_detect_sharded(det, m)
+            data = sim.stream_to_blocks(streams[0], 16384, 4920)[:64]
+            saved[run["name"] + "/input"] = data
+        else:
+            total = run["per_shard"] * key[1]
+            fn = sharded.make_stream_detector_gspmd(det, total, m) \
+                if run["program"] == "gspmd" else \
+                sharded.make_stream_detector(det, key[0], run["per_shard"],
+                                             m, gather=True)
+            data = sharded.shard_stream(streams, m)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        pp.launches = 0
+        out = fn(data)
+        launches = pp.launches
+        for k, v in out.items():
+            saved[run["name"] + "/" + k] = v.cpu().numpy()
+        saved[run["name"] + "/launches"] = np.array(launches)
+        saved[run["name"] + "/overflows"] = np.array(det.gate_overflows)
+        if run["name"] == spec["timed"]:
+            timed = (det, fn, data, m, run["per_shard"])
+    det, fn, chunk, m, per = timed
+    t = m.coords()[1]
+    history = det.config.history_len
+    split = {k: [] for k in ("halo", "detect", "gather", "call")}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    for _ in range(MR_TIMING_REPS):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        halo = sharded._exchange_halo(chunk[:, chunk.shape[1] - history:], m)
+        sync()
+        t1 = time.perf_counter()
+        if device == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = sharded._local_detect(det, chunk, halo, t, per)
+        if device == "cuda":
+            end.record()
+            end.synchronize()
+        t2 = time.perf_counter()
+        sharded._gather_table(out, m)
+        sync()
+        t3 = time.perf_counter()
+        dist.barrier()
+        sync()
+        t4 = time.perf_counter()
+        fn(chunk)
+        sync()
+        t5 = time.perf_counter()
+        split["halo"].append((t1 - t0) * 1e3)
+        split["detect"].append(start.elapsed_time(end) if device == "cuda"
+                               else (t2 - t1) * 1e3)
+        split["gather"].append((t3 - t2) * 1e3)
+        split["call"].append((t5 - t4) * 1e3)
+    for k, v in split.items():
+        saved["timing/" + k] = np.array(v)
+    saved["timing/rows"] = np.array(chunk.shape[0] * per)
+    np.savez(os.path.join(d, "{}_{}.npz".format(backend, rank)), **saved)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_world(world, backend, d, device):
+    """Spawn the ranks of one world, wait for them (``MR_TIMEOUT_S`` in
+    all), stop any still running and fail unless every rank exited 0.
+    Returns each rank's saved outputs."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=multirank_rank,
+                         args=(rank, world, backend, d, device))
+             for rank in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MR_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), "{} world of {}: rank exit codes {} "
+          "(None: still running after {} s)".format(backend, world, codes,
+                                                    MR_TIMEOUT_S))
+    print("{} world of {} ranks on {}: every rank exited 0 in {:.1f} s, "
+          "start-up included".format(backend, world, device,
+                                     time.perf_counter() - t0))
+    return [dict(np.load(os.path.join(d, "{}_{}.npz".format(backend, k))))
+            for k in range(world)]
+
+
+def rank_result(ranks, name, rank=0):
+    pre = name + "/"
+    return {k[len(pre):]: v for k, v in ranks[rank].items()
+            if k.startswith(pre) and k[len(pre):] not in (
+                "launches", "overflows", "input")}
+
+
+def stitched(ranks, name, mesh=MR_MESH):
+    """The [R, total] table of a gather=False run from the ranks'
+    slices (rank r*T + t holds rows of rx row r, blocks of time t)."""
+    parts = [rank_result(ranks, name, k) for k in range(len(ranks))]
+    num_rx, num_time = mesh
+    return {f: np.concatenate([np.concatenate(
+        [parts[r * num_time + t][f] for t in range(num_time)], axis=1)
+        for r in range(num_rx)]) for f in parts[0]}
+
+
+def compare_tables(got, ref, what):
+    """Integer fields exact, float fields within 2e-4 (absolute and
+    relative: tests/test_sharded.py's tolerance); returns the largest
+    float difference."""
+    worst = 0.0
+    for k, r in ref.items():
+        g = got[k]
+        check(g.shape == r.shape, "{}: {} shape {} vs {}".format(
+            what, k, g.shape, r.shape))
+        if k in MR_EXACT:
+            check(np.array_equal(g, r), "{}: {} differs".format(what, k))
+        else:
+            check(np.allclose(g, r, rtol=2e-4, atol=2e-4),
+                  "{}: {} beyond 2e-4".format(what, k))
+            worst = max(worst, float(np.max(np.abs(g - r), initial=0.0)))
+    return worst
+
+
+def edge_fixes(table, caps, detector, device):
+    """The gathered table -> detection records -> identify -> match ->
+    tdoa -> the batched solver on ``device`` (the JAX demo's chain)."""
+    import functools
+
+    from thrifty_tpu_torch.io import toad
+    from thrifty_tpu_torch.pipeline import kitchen_sink, pos
+
+    parts = []
+    for ri, rxid in enumerate(sorted(caps)):
+        soa = detector.soa(table["block_idx"][ri], table["corr_sample"][ri],
+                           table["corr_offset"][ri])
+        parts.append(toad.from_detector_output(
+            caps[rxid].timestamps, table["block_idx"][ri], soa,
+            {k: v[ri] for k, v in table.items() if k != "block_idx"},
+            rxid=rxid))
+    settings = kitchen_sink.PostdetectSettings(
+        freqmap={r: {9: (25.0, 35.0), 3: (65.0, 75.0)} for r in NET_RX},
+        match_window=0.02, tdoa_est_window=8.0, rx_pos=NET_RX,
+        beacon_pos=NET_BEACON, sample_rate=2.4e6)
+    return kitchen_sink.postdetect(
+        np.concatenate(parts), settings, pos_estimator=functools.partial(
+            pos.solve_batched, device=device, verbose=False)).pos
+
+
+def multirank_phase(card_name, device="cuda"):
+    """The multi-rank streaming program (``thrifty_tpu_torch.parallel``)
+    on the card, as ``__graft_entry__.dryrun_multichip`` runs JAX's on a
+    mesh: a gloo world of 4 ranks, mesh (rx=2, time=2), at the tiny
+    geometry (plain, gated at capacity 1, the GSPMD twin, a 2-code bank)
+    and the full one (16384/4920/4914, 64 blocks a rank, the twin, a
+    2-code bank), planted bursts across the rank boundary; the network
+    demo's scenario through identify -> match -> tdoa -> pos; then a
+    world of 1 over NCCL.  ``device="cpu"`` rehearses it on the CPU
+    (gloo only)."""
+    phase("multi-rank stream")
+    from thrifty_tpu_torch import sim
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+
+    d = tempfile.mkdtemp(prefix="multirank_")
+    try:
+        t0 = time.perf_counter()
+        inputs, truths, caps = multirank_inputs(d)
+        print("inputs synthesised in {:.1f} s".format(
+            time.perf_counter() - t0))
+        ranks = run_world(4, "gloo", d, device)
+        nccl = run_world(1, "nccl", d, device) if device == "cuda" else None
+
+        def detector(template, config):
+            return BatchDetector(inputs[template], DetectorConfig(**config),
+                                 device=device)
+
+        tiny_det = detector("tiny_tpl", TINY)
+        num_rx, num_time = MR_MESH
+        tiny = rank_result(ranks, "tiny")
+        for k in range(1, len(ranks)):
+            other = rank_result(ranks, "tiny", k)
+            check(all(np.array_equal(other[f], tiny[f]) for f in tiny),
+                  "rank {} holds another gathered table".format(k))
+        tiny_total = MR_TINY_PER * num_time
+        worst = assert_bursts(tiny_det, tiny, truths["tiny"], num_rx,
+                              tiny_total, "tiny")
+        gated = rank_result(ranks, "tiny_gated")
+        assert_bursts(tiny_det, gated, truths["tiny"], num_rx, tiny_total,
+                      "tiny-gated")
+        check(np.array_equal(gated["detected"], tiny["detected"]),
+              "tiny-gated: decisions differ from ungated")
+        over = [int(r["tiny_gated/overflows"]) for r in ranks]
+        check(0 in over and max(over) > 0, "tiny-gated: overflows per rank "
+              "{}: want some ranks over capacity 1 and one not".format(over))
+        twin = stitched(ranks, "tiny_twin")
+        check(all(np.array_equal(twin[f], tiny[f]) for f in tiny),
+              "tiny: the GSPMD twin differs from the gathered table")
+        assert_bursts(tiny_det, rank_result(ranks, "tiny_bank"),
+                      truths["tiny_bank"], num_rx, tiny_total, "tiny-bank",
+                      check_template=True)
+        print("tiny (256/64, 5-bit code, mesh 2x2): every planted burst "
+              "found (halo burst included) within {:.3g} samples, no false "
+              "positive, the same table on every rank; gated at capacity 1 "
+              "(overflow re-runs per rank {}) = ungated; GSPMD twin = "
+              "gathered table; 2-code bank right".format(worst, over))
+
+        full_det = detector("full_tpl", FULL)
+        total = MR_FULL_PER * num_time
+        full = rank_result(ranks, "full")
+        worst = assert_bursts(full_det, full, truths["full"], num_rx, total,
+                              "full")
+        refs = []
+        for r in range(num_rx):
+            blocks = sim.stream_to_blocks(inputs["full_streams"][r], 16384,
+                                          4920)
+            ref = {k: v.cpu().numpy() for k, v in full_det(blocks).items()}
+            ref["block_idx"] = np.arange(total, dtype=np.int32)
+            refs.append(ref)
+        ref = {k: np.stack([x[k] for x in refs]) for k in refs[0]}
+        diff = compare_tables(full, ref, "full vs one process")
+        twin = stitched(ranks, "full_twin")
+        check(all(np.array_equal(twin[f], full[f]) for f in full),
+              "full: the GSPMD twin differs from the gathered table")
+        bank_det = detector("full_bank", FULL)
+        assert_bursts(bank_det, rank_result(ranks, "full_bank"),
+                      truths["full_bank"], num_rx, total, "full-bank",
+                      check_template=True)
+        print("full (16384/4920/4914, mesh 2x2, [{}, 16384] a rank): every "
+              "planted burst found within {:.3g} samples (halo burst "
+              "included); table = the single-process detector on the "
+              "host-unfolded blocks (integers exact, floats within {:.3g}); "
+              "GSPMD twin = gathered; 2-code full bank right".format(
+                  MR_FULL_PER, worst, diff))
+
+        net_det = detector("full_tpl", FULL)
+        fixes = edge_fixes(rank_result(ranks, "edge"), caps, net_det,
+                           device)
+        mobile = fixes[fixes["tx"] == 3]
+        err = np.hypot(mobile["x"] - NET_MOBILE[0],
+                       mobile["y"] - NET_MOBILE[1])
+        check(len(mobile) == 3 and err.max() < FIX_BAR_M,
+              "server edge: mobile fixes {} m from the transmitter".format(
+                  err.tolist()))
+        cpu_det = BatchDetector(inputs["full_tpl"], DetectorConfig(**FULL),
+                                device="cpu")
+        t0 = time.perf_counter()
+        cpu = {}
+        for r in range(len(caps)):
+            blocks = sim.stream_to_blocks(inputs["net_streams"][r], 16384,
+                                          4920)
+            for k, v in cpu_det(blocks).items():
+                cpu.setdefault(k, []).append(v.numpy())
+        cpu = {k: np.stack(v) for k, v in cpu.items()}
+        cpu["block_idx"] = np.broadcast_to(
+            np.arange(NET_BLOCKS, dtype=np.int32), cpu["detected"].shape)
+        ref_fixes = edge_fixes(cpu, caps, cpu_det, "cpu")
+        cpu_s = time.perf_counter() - t0
+        worst, beyond = compare_fixes(fixes, ref_fixes,
+                                      "server edge vs one CPU process", 1e-4)
+        print("server edge (4 receivers x {} blocks, mesh 2x2, [{}, 16384] "
+              "a rank): {} fixes, mobile {} m from (6000, 2500) (limit {} "
+              "m); equal to the chain in one CPU process: (timestamp, tx) "
+              "exact, x/y within {:.3g} m, {} beyond 1e-6 m (CPU chain {:.1f} "
+              "s)".format(NET_BLOCKS, 2 * NET_BLOCKS // num_time, len(fixes),
+                          np.round(err, 3).tolist(), FIX_BAR_M, worst, beyond,
+                          cpu_s))
+
+        launches = {name: [int(r[name + "/launches"]) for r in ranks]
+                    for name in ("tiny", "tiny_gated", "tiny_twin",
+                                 "tiny_bank", "full", "full_twin",
+                                 "full_bank", "edge")}
+        for name, counts in launches.items():
+            over = [int(r[name + "/overflows"]) for r in ranks]
+            want = [2 + o for o in over] if device == "cuda" else [0] * 4
+            check(counts == want, "{}: power/peak launches per rank {}, "
+                  "want {}".format(name, counts, want))
+        print("power/peak launches per rank-local batch (ranks 0-3): {}; "
+              "{}".format("; ".join("{} {}".format(k, v)
+                                    for k, v in launches.items()),
+                          card_name))
+        report_split("gloo world of 4, full geometry", ranks, card_name)
+        if nccl is not None:
+            got = rank_result(nccl, "nccl_full")
+            diff = compare_tables(got, ref, "nccl world of 1 vs one process")
+            batch = rank_result(nccl, "nccl_batch")
+            one = {k: v.cpu().numpy() for k, v in full_det(
+                nccl[0]["nccl_batch/input"]).items()}
+            compare_tables(batch, one, "nccl batch_detect_sharded")
+            counts = [int(nccl[0][n + "/launches"])
+                      for n in ("nccl_full", "nccl_batch")]
+            check(counts == [2, 2], "nccl: launches {}".format(counts))
+            print("nccl world of 1 (mesh 1x1, [{}, 16384]): the gathered "
+                  "table = the single-process detector (floats within "
+                  "{:.3g}); batch_detect_sharded = the detector; 2 "
+                  "power/peak launches a call".format(2 * total, diff))
+            report_split("nccl world of 1, full geometry", nccl, card_name)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"stream (rank)": float(np.mean(launches["full"]))}
+
+
+def report_split(label, ranks, card_name):
+    """Median ms per rank call of the timed run, split into halo exchange
+    (host clock), detect (CUDA events), gather (host clock) and the whole
+    call (host clock)."""
+    for k, r in enumerate(ranks):
+        med = {s: float(np.median(r["timing/" + s]))
+               for s in ("halo", "detect", "gather", "call")}
+        print("{}, rank {} ([{}, 16384] a call, median of {}): halo exchange "
+              "{:.3f} ms, detect {:.3f} ms, gather {:.3f} ms; whole call "
+              "{:.3f} ms; {}".format(label, k, int(r["timing/rows"]),
+                                     MR_TIMING_REPS, med["halo"],
+                                     med["detect"], med["gather"],
+                                     med["call"], card_name))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2048,6 +2611,7 @@ def main(argv=None):
         serve_cli_phase(card_name, tmp)
         paths.update(template_extract_phase(card_name, tmp))
         paths.update(doctor_phase(card_name))
+        paths.update(multirank_phase(card_name))
         timing_phase(card_name, tmp, cap, template, raw_path)
         program_timings(card_name, template)
         kernel["paths"] = sorted(paths)

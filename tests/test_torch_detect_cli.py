@@ -362,7 +362,8 @@ def _jax_package_names(path):
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(os.path.join(ROOT, "thrifty_tpu_torch"))
      for f in fs if f.endswith(".py")]
-    + ["chip_smoke.py", os.path.join("scripts", "profile_torch_detect.py")]))
+    + ["chip_smoke.py", os.path.join("scripts", "profile_torch_detect.py"),
+       os.path.join("scripts", "network_demo_torch.py")]))
 def test_port_imports_only_host_modules(rel):
     """The port and its card scripts import nothing of the JAX package,
     not even its numpy host modules (the port keeps its own copies),

@@ -18,6 +18,18 @@ the port on the card:
   history 4920, batch 256, the 4914-sample golden template) against its
   ground truth and against the same CLI on the CPU -- the main path,
   whose kernel launches the JSON line reports;
+- the transform family (``dsp/mxu_fft.py``): ``fft``, ``ifft``,
+  ``ifft_head``, ``windowed_dft`` (the carrier window, W = 110, and a
+  wrapped window) and ``fft_ramped`` as matmul and matmul3 at each
+  precision against the float64 FFT at [256, 16384], the dense n = 1024
+  and the unfactorable n = 6000 (TF32 off after every call), with their
+  cold-L2 times and bounds beside cuFFT's; ``detect`` under
+  ``--fft-impl matmul`` (windowed carrier, separable ramp), with
+  ``--carrier-fast off --ramp-fast off``, ``matmul3``, TF32 carrier or
+  transforms, against the default run and the ground truth; the golden
+  cards under ``--fft-impl matmul``; ``capture --fft-impl matmul``
+  against fastcard's archive; ``--pallas off`` (the plain reductions)
+  refused on the card, by the CLI and the detector, before any launch;
 - ``detect --sync-mode integer`` and ``capture`` against the goldens of
   the compiled fastdet / fastcard (``tests/golden/fastdet``);
 - ``detect --raw --device-unfold`` against ``detect --raw``;
@@ -1623,7 +1635,16 @@ def program_timings(card_name, template):
             ("maximise", template, dict(corr_interp="maximise")),
             ("stats", template, dict(carrier_thresh=STDDEV_THRESH,
                                      corr_thresh=CORR_STDDEV_THRESH)),
-            ("peak_filter", template, dict(peak_filter_len=-1))):
+            ("peak_filter", template, dict(peak_filter_len=-1)),
+            ("matmul", template, dict(fft_impl="matmul")),
+            ("matmul_full", template, dict(fft_impl="matmul",
+                                           carrier_fast="off",
+                                           ramp_fast="off")),
+            ("matmul3", template, dict(fft_impl="matmul3")),
+            ("matmul_high", template, dict(fft_impl="matmul",
+                                           fft_precision="high")),
+            ("matmul_carrier_high", template, dict(
+                fft_impl="matmul", carrier_precision="high"))):
         det = BatchDetector(tmpl, DetectorConfig(carrier_window=(7, 110),
                                                  **kw), device=dev)
         fn = lambda: det.submit_raw(rows)
@@ -1673,6 +1694,321 @@ def options_phase(card_name, tmp, cap, tpl_path, raw_path):
     print("capture --carrier-threshold 15s+2d: {} blocks archived; 1 kernel "
           "launch per batch".format(len(card_lines(out))))
     return per_batch
+
+
+# -- the transform family (dsp/mxu_fft.py) ---------------------------------
+#
+# Peak rates of one H100 SXM by the matmul precision (NVIDIA's data sheet,
+# dense): float32 outside the tensor cores, TF32, bf16.
+PEAK_FLOPS = {"highest": 67e12, "high": 495e12, "default": 989e12}
+FFT_PEAK = 67e12  # torch.fft: float32 butterflies
+# Bounds against the float64 oracle, relative to the largest output:
+# JAX's tests/test_mxu_fft.py at 'highest' (the transforms and the window
+# 2e-5, the separable ramp 2e-6 and 4e-6 as matmul3, the full ramp of the
+# fallback sizes 1e-5); 2e-3 for TF32 and 1e-2 for bf16.
+PREC_BOUND = {"high": 2e-3, "default": 1e-2}
+TRANSFORM_NS = (16384, 1024, 6000)  # four-step, dense DFT, no factorization
+TRANSFORM_ROWS = BATCH
+
+
+def transform_inputs(n, seed=0):
+    """[256, n] complex64 blocks, per-row shifts in bins, the head length,
+    the carrier window with the Dirichlet fit's 3-bin margin (W = 110 at
+    16384) and a wrapped window; the float64 oracles of each transform."""
+    rng = np.random.default_rng(seed + n)
+    x = (rng.normal(size=(TRANSFORM_ROWS, n))
+         + 1j * rng.normal(size=(TRANSFORM_ROWS, n))).astype(np.complex64)
+    # Carrier shifts of the detect window; the full ramp of the fallback
+    # sizes at JAX's test span (its 1e-5 bound grows with the phase).
+    span = 110 if n == 16384 else 20
+    shifts = rng.uniform(-span, span, TRANSFORM_ROWS).astype(np.float32)
+    x64 = x.astype(np.complex128)
+    spec = np.fft.fft(x64)
+    head = n - 4914 + 1 if n == 16384 else n * 7 // 10
+    window = np.arange(4, 114) if n == 16384 else np.arange(3, 40)
+    wrapped = np.arange(-55, 55) % n if n == 16384 else np.arange(-10, 11) % n
+    pos = np.arange(n) / n - 0.5
+    ramped = np.fft.fft(x64 * np.exp(2j * np.pi * shifts.astype(
+        np.float64)[:, None] * pos))
+    oracle = {"fft": spec, "ifft": np.fft.ifft(x64),
+              "ifft_head": np.fft.ifft(x64)[:, :head],
+              "windowed": spec[:, window], "windowed_wrapped": spec[:, wrapped],
+              "fft_ramped": ramped}
+    return x, shifts, head, window, wrapped, oracle
+
+
+def transform_calls(x, s, head, window, wrapped):
+    """{case: fn(impl, precision)} of the module's transforms on the card."""
+    from thrifty_tpu_torch.dsp import mxu_fft as mf
+
+    return {
+        "fft": lambda i, p: mf.fft(x, i, p),
+        "ifft": lambda i, p: mf.ifft(x, i, p),
+        "ifft_head": lambda i, p: mf.ifft_head(x, head, i, p),
+        "windowed": lambda i, p: mf.windowed_dft(x, window, i, p),
+        "windowed_wrapped": lambda i, p: mf.windowed_dft(x, wrapped, i, p),
+        "fft_ramped": lambda i, p: mf.fft_ramped(x, s, i, p),
+    }
+
+
+def highest_bound(case, n, impl):
+    from thrifty_tpu_torch.dsp import mxu_fft as mf
+
+    if case != "fft_ramped":
+        return 2e-5
+    if mf._split(n) is None:
+        return 1e-5  # the full ramp
+    return 4e-6 if impl == "matmul3" else 2e-6
+
+
+def transform_work(case, n, impl, head, width):
+    """(real flops, bytes) that one call at [256, n] must do: the data read
+    once and written once; under 'auto' the FFT's 5 n log2 n flops a row,
+    on the matmul path 8 real flops per complex multiply-add (matmul3's
+    Karatsuba 6) and the constants read once."""
+    from thrifty_tpu_torch.dsp import mxu_fft as mf
+
+    rows = TRANSFORM_ROWS
+    flops_per_mac = 6 if impl == "matmul3" else 8
+    split = mf._split(n)
+    out_cols = {"ifft_head": head, "windowed": width,
+                "windowed_wrapped": width}.get(case, n)
+    nbytes = rows * n * 8 + rows * out_cols * 8
+    if case == "fft_ramped":
+        nbytes += rows * 4
+    if impl == "auto":
+        return rows * 5 * n * math.log2(n), nbytes
+    if case.startswith("windowed"):
+        macs = rows * n * width
+        nbytes += n * width * 8
+    elif split is None:
+        macs = rows * n * out_cols
+        nbytes += n * out_cols * 8
+    else:
+        n1, n2 = split
+        macs = rows * n1 * n1 * n2 + rows * n1 * n2 * -(-out_cols // n1)
+        nbytes += (2 * n1 * n1 + 2 * n1 * n2) * 8
+    return macs * flops_per_mac, nbytes
+
+
+def transforms_phase(card_name):
+    """The matmul transforms against the float64 oracle at [256, 16384],
+    the dense n = 1024 and the unfactorable n = 6000, for matmul and
+    matmul3 at each precision ('highest' within JAX's bounds, 'high'
+    coarser than it and within 2e-3, 'default' within 1e-2, TF32 off after
+    every call), then their cold-L2 times at [256, 16384] beside
+    torch.fft and each one's bound."""
+    phase("transforms")
+    from thrifty_tpu_torch.dsp import mxu_fft as mf
+
+    dev = torch.device("cuda")
+    precs = ("highest", "high", "default")
+    worst = {}
+    for n in TRANSFORM_NS:
+        x, s, head, window, wrapped, oracle = transform_inputs(n)
+        calls = transform_calls(torch.from_numpy(x).to(dev),
+                                torch.from_numpy(s).to(dev), head, window,
+                                wrapped)
+        for impl in ("matmul", "matmul3"):
+            for case, fn in calls.items():
+                errs = {}
+                for prec in precs:
+                    got = fn(impl, prec).cpu().numpy()
+                    check(torch.backends.cuda.matmul.allow_tf32 is False,
+                          "TF32 left on after {} {}".format(case, prec))
+                    ref = oracle[case]
+                    errs[prec] = float(np.max(np.abs(got - ref))
+                                       / np.max(np.abs(ref)))
+                bound = highest_bound(case, n, impl)
+                what = "{} n={} {}".format(case, n, impl)
+                check(errs["highest"] < bound, "{}: highest err {:.3g} >= "
+                      "{:g}".format(what, errs["highest"], bound))
+                for prec, lim in PREC_BOUND.items():
+                    check(errs[prec] < lim, "{}: {} err {:.3g} >= {:g}".format(
+                        what, prec, errs[prec], lim))
+                matmul_path = mf._split(n) is not None or n <= mf._DFT_MAX
+                if matmul_path:
+                    check(errs["high"] > errs["highest"],
+                          "{}: 'high' no coarser than 'highest' ({:.3g} vs "
+                          "{:.3g})".format(what, errs["high"],
+                                           errs["highest"]))
+                for prec, e in errs.items():
+                    key = (prec, matmul_path)
+                    worst[key] = max(worst.get(key, 0.0), e)
+                print("{}: max rel err highest {:.3g} (bound {:g}), high "
+                      "{:.3g}, default {:.3g}".format(
+                          what, errs["highest"], bound, errs["high"],
+                          errs["default"]))
+    print("worst on the matmul paths: highest {:.3g}, high (TF32) {:.3g}, "
+          "default (bf16) {:.3g}; TF32 off after every call; {}".format(
+              worst["highest", True], worst["high", True],
+              worst["default", True], card_name))
+
+    # Cold-L2 device time at the main path's shape.
+    n = 16384
+    x, s, head, window, wrapped, _ = transform_inputs(n, seed=1)
+    xd, sd = torch.from_numpy(x).to(dev), torch.from_numpy(s).to(dev)
+    calls = transform_calls(xd, sd, head, window, wrapped)
+    scrub = torch.empty(64 * 1024 * 1024, device=dev)  # 256 MB > the L2
+    timings = {}
+    for case in ("fft", "ifft_head", "windowed", "fft_ramped"):
+        fn = calls[case]
+        base_ms = median_ms(lambda: fn("auto", "highest"), "cold", scrub)
+        flops, nbytes = transform_work(case, n, "auto", head, len(window))
+        base_bound = max(flops / FFT_PEAK, nbytes / HBM_BYTES_PER_S) * 1e3
+        print("{} [{}, {}] torch.fft (cuFFT): cold {:.4f} ms, bound {:.4f} "
+              "ms (bytes: {:.3g} MB); {}".format(
+                  case, TRANSFORM_ROWS, n, base_ms, base_bound, nbytes / 1e6,
+                  card_name))
+        for impl in ("matmul", "matmul3"):
+            for prec in precs:
+                ms = median_ms(lambda: fn(impl, prec), "cold", scrub)
+                flops, nbytes = transform_work(case, n, impl, head,
+                                               len(window))
+                t_ops = flops / PEAK_FLOPS[prec] * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound = max(t_ops, t_bytes)
+                by = "operations" if t_ops >= t_bytes else "bytes"
+                timings[case, impl, prec] = (ms, bound, by)
+                print("{} [{}, {}] {} {}: cold {:.4f} ms, bound {:.4f} ms "
+                      "({}: {:.3g} GFLOP, {:.3g} MB), torch.fft {:.4f} ms; "
+                      "{}".format(case, TRANSFORM_ROWS, n, impl, prec, ms,
+                                  bound, by,
+                                  flops / 1e9, nbytes / 1e6, base_ms,
+                                  card_name))
+        timings[case, "auto", "highest"] = (base_ms, base_bound, "bytes")
+    del scrub
+    return timings
+
+
+# JAX's TestCarrierPrecision tolerances (tests/test_mxu_fft.py:498-512),
+# for TF32 in the carrier transform: carrier_energy rtol 2e-3,
+# carrier_offset atol 5e-3, corr_offset atol 1e-3 (and the SoA with it).
+HIGH_TOLS = dict(TOAD_TOLS)
+HIGH_TOLS.update({10: dict(rtol=2e-3, atol=1e-3), 9: dict(atol=5e-3),
+                  5: dict(atol=1e-3), 3: dict(atol=1e-3)})
+# TF32 in every transform (--fft-precision high): the correlation's GEMM
+# stages round their operands to TF32 (unit roundoff 2^-11), and the
+# Gaussian fit turns that into corr_offset (and SoA) differences from the
+# float32 run.  scripts/tf32_drift_torch.py over 32 captures like this
+# one on an H100 read at most 6.46e-3 samples (median 1.21e-3; this
+# capture 1.62e-3, PERF.md section 6), so these two columns are held at
+# 1e-2, that reading with about 1.5x headroom, and the rest as above.
+TF32_TOLS = dict(HIGH_TOLS)
+TF32_TOLS.update({5: dict(atol=1e-2), 3: dict(atol=1e-2)})
+# detect through the CLI on the full-size capture, one run per transform
+# configuration: (name, flags, power/peak launches per batch, tolerances
+# against the default run).
+TRANSFORM_RUNS = (
+    ("detect_matmul", ["--fft-impl", "matmul"], 1, TOAD_TOLS),
+    ("detect_matmul_full", ["--fft-impl", "matmul", "--carrier-fast", "off",
+                            "--ramp-fast", "off"], 2, TOAD_TOLS),
+    ("detect_matmul3", ["--fft-impl", "matmul3"], 1, TOAD_TOLS),
+    ("detect_matmul_carrier_high", ["--fft-impl", "matmul",
+                                    "--carrier-precision", "high"], 1,
+     HIGH_TOLS),
+    ("detect_matmul_high", ["--fft-impl", "matmul", "--fft-precision",
+                            "high"], 1, TF32_TOLS),
+)
+
+
+def compare_toads_tols(got, ref, what, tols):
+    check(got.shape == ref.shape, "{}: {} vs {} detections".format(
+        what, got.shape[0], ref.shape[0]))
+    for col in TOAD_INT_COLS:
+        check(np.array_equal(got[:, col], ref[:, col]),
+              "{}: toad column {} differs".format(what, col))
+    for col, tol in tols.items():
+        err = float(np.max(np.abs(got[:, col] - ref[:, col]), initial=0.0))
+        check(np.allclose(got[:, col], ref[:, col], **tol),
+              "{}: toad column {} beyond {} (max |diff| {:.3g})".format(
+                  what, col, tol, err))
+
+
+def refuse_pallas_off(tmp, card_path, tpl_path, template):
+    """The card has no plain reduction path: ``detect --pallas off`` is a
+    usage error there and a CUDA detector refuses ``use_pallas='off'``,
+    both before any launch."""
+    from thrifty_tpu_torch.cli import main
+    from thrifty_tpu_torch.dsp import power_peak as pp
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+
+    out = os.path.join(tmp, "pallas_off.toad")
+    pp.launches = 0
+    try:
+        code = main(["detect", card_path, "-o", out, "--pallas", "off"]
+                    + common_args("cuda", tpl_path))
+    except SystemExit as exc:
+        code = exc.code
+    check(code == 2 and not os.path.exists(out),
+          "detect --pallas off --device cuda: exit {}, expected the usage "
+          "error (2) and no .toad".format(code))
+    try:
+        BatchDetector(template, DetectorConfig(use_pallas="off"),
+                      device="cuda")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "BatchDetector(use_pallas='off', device='cuda') ran")
+    check(pp.launches == 0, "--pallas off launched the kernel")
+    print("--pallas off on the card: the CLI's usage error and the "
+          "detector's ValueError, 0 launches")
+
+
+def transform_detect_phase(card_name, tmp, cap, tpl_path):
+    """detect through the CLI under each transform configuration on the
+    full-size capture (512 blocks, batch 256) against the default run's
+    .toad and the ground truth; --pallas off refused; the golden cards
+    under --fft-impl matmul; capture --fft-impl matmul against fastcard's
+    gated.card."""
+    phase("transforms through the CLI")
+    from thrifty_tpu_torch.io import card
+
+    n = len(cap.indices)
+    card_path = os.path.join(tmp, "full.card")
+    ref = load_toad(os.path.join(tmp, "full_gpu.toad"))
+    per_batch = {}
+    for name, extra, launches, tols in TRANSFORM_RUNS:
+        out = os.path.join(tmp, name + ".toad")
+        seconds, per_batch[name] = run_cli(
+            "detect", [card_path, "-o", out] + common_args("cuda", tpl_path)
+            + extra, n, launches)
+        check(torch.backends.cuda.matmul.allow_tf32 is False,
+              name + ": TF32 left on")
+        got = load_toad(out)
+        compare_toads_tols(got, ref, name, tols)
+        check_bursts(got, cap, name)
+        diffs = {col: float(np.max(np.abs(got[:, col] - ref[:, col])))
+                 for col in (3, 5, 9, 10)}
+        print("{} ({}): {} detections = the default run's, every burst "
+              "within 0.05 samples; max |diff| soa {:.3g}, corr_offset {:.3g}, "
+              "carrier_offset {:.3g}, carrier_energy {:.3g}; {} power/peak "
+              "launches per batch; CLI {:.4g} IQ samples/s; {}".format(
+                  name, " ".join(extra), len(got), diffs[3], diffs[5],
+                  diffs[9], diffs[10], launches, n * NEW_LEN / seconds,
+                  card_name))
+    refuse_pallas_off(tmp, card_path, tpl_path, cap.template)
+    golden_tpl = os.path.join(INPUT, "template.npy")
+    for rxid in (0, 1, 2):
+        src = os.path.join(INPUT, "rx{}.card".format(rxid))
+        out = os.path.join(tmp, "rx{}_matmul.toad".format(rxid))
+        _, per_batch["detect_golden_matmul"] = run_cli(
+            "detect", [src, "-o", out, "--fft-impl", "matmul"]
+            + common_args("cuda", golden_tpl, rxid),
+            len(card.read_card(src)[0]), 1)
+        compare_toads(load_toad(out), load_toad(os.path.join(
+            GOLDEN, "rx{}.toad".format(rxid))), "rx{} matmul".format(rxid))
+    print("rx0/rx1/rx2 under --fft-impl matmul match the reference goldens; "
+          "1 power/peak launch per batch")
+    out = os.path.join(tmp, "capture_matmul.card")
+    run_cli("capture", ["--raw-in", RAW0, "-o", out, "--t0", "0", "--quiet",
+                        "--carrier-window", "7-110", "--device", "cuda",
+                        "--fft-impl", "matmul"], 40, 0)
+    check(card_lines(out) == card_lines(os.path.join(FASTDET, "gated.card")),
+          "capture --fft-impl matmul: archive differs from the default run's")
+    print("capture --fft-impl matmul: the default run's blocks and payloads "
+          "(fastcard's gated.card); 0 power/peak launches (windowed gate)")
+    return {k: v for k, v in per_batch.items() if v}
 
 
 # The live server's mix: bench.py's bench_serve (5 receivers with
@@ -2594,6 +2930,8 @@ def main(argv=None):
         paths = {"detect": kernel["launches"] / math.ceil(
             len(cap.indices) / BATCH)}
         tpl_path = os.path.join(tmp, "template.npy")
+        transforms_phase(card_name)
+        paths.update(transform_detect_phase(card_name, tmp, cap, tpl_path))
         raw_path = os.path.join(tmp, "full.raw")
         iq.iq_to_raw(cap.blocks[:, 4920:].reshape(-1)).tofile(raw_path)
         paths.update(fastdet_phase(tmp))

@@ -40,8 +40,7 @@ from thrifty_tpu_torch import sim
 from thrifty_tpu_torch.cli import main as cli_main
 from thrifty_tpu_torch.device import resolve_device
 from thrifty_tpu_torch.dsp import carrier, dirichlet, power_peak, xcorr
-from thrifty_tpu_torch.dsp import fft as fft_mod
-from thrifty_tpu_torch.dsp import iq
+from thrifty_tpu_torch.dsp import iq, mxu_fft
 from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
 from thrifty_tpu_torch.io import card
 
@@ -115,7 +114,7 @@ def stages(det, raw, card_name, reps=12, skip=2):
         mark("start", marks)
         blocks = iq.raw_to_iq(raw)
         mark("u8 -> complex64", marks)
-        spec = fft_mod.fft(blocks)
+        spec = mxu_fft.fft(blocks)
         mark("carrier fft", marks)
         c_idx, c_pow, c_energy = power_peak.fused_power_peak(
             spec, det._carrier_mask)

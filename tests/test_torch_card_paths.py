@@ -1,8 +1,10 @@
 """The port's streaming, integer-sync, gated, bank, preshift,
-interpolator, stddev, peak-filter and capture paths on a CUDA card
-against the same port on the CPU (which the other test_torch_* files
-hold against the JAX package), and the power/peak kernel against its
-plain version on the bank rows and both stats masks.
+interpolator, stddev, peak-filter, capture and matmul-transform paths on
+a CUDA card against the same port on the CPU (which the other
+test_torch_* files hold against the JAX package), the power/peak kernel
+against its plain version on the bank rows and both stats masks, and
+the matmul transforms' precisions against the float64 FFT (TF32 off
+again after every call).
 
 Every test is marked ``cuda`` and skips where there is no card.  The
 file imports no JAX, so it runs on a machine without it:
@@ -177,3 +179,99 @@ def test_kernel_on_bank_rows_and_stats_masks(cuda_device):
         assert torch.equal(got[1], ref[1])
         for g, r in zip(got[2:], ref[2:]):
             torch.testing.assert_close(g, r, rtol=1e-5, atol=0)
+
+
+# -- the matmul transforms (dsp/mxu_fft.py) on the card ----------------------
+
+def transform_error(dev, impl, prec, n=16384):
+    """Max |error| / max |exact| of the matmul FFT on the card against the
+    float64 numpy FFT, and TF32's switch after the call."""
+    from thrifty_tpu_torch.dsp import mxu_fft
+
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(4, n)) + 1j * rng.normal(size=(4, n))
+         ).astype(np.complex64)
+    got = mxu_fft.fft(torch.from_numpy(x).to(dev), impl, prec).cpu().numpy()
+    ref = np.fft.fft(x.astype(np.complex128))
+    return (np.max(np.abs(got - ref)) / np.max(np.abs(ref)),
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.parametrize("impl", ["matmul", "matmul3"])
+@pytest.mark.parametrize("n", [1024, 16384])
+def test_precisions_on_card(cuda_device, impl, n):
+    """'highest' within JAX's 2e-5; 'high' (TF32) coarser than it and
+    within 2e-3; 'default' (bf16) within 1e-2; TF32 off again after
+    every call."""
+    errs = {}
+    for prec in ("highest", "high", "default"):
+        errs[prec], tf32 = transform_error(cuda_device, impl, prec, n)
+        assert tf32 is False, prec
+    assert errs["highest"] < 2e-5, errs
+    assert errs["highest"] < errs["high"] < 2e-3, errs
+    assert errs["default"] < 1e-2, errs
+
+
+def test_tf32_restored_after_high_detect(cuda_device):
+    """A detector with 'high' transforms leaves TF32 as it found it (off,
+    as resolve_device sets it), and so does every transform of it."""
+    from thrifty_tpu_torch.dsp import mxu_fft
+
+    cap = capture()
+    card, _ = pair(cuda_device, fft_impl="matmul", fft_precision="high")
+    card(cap.blocks)
+    torch.cuda.synchronize()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    x = torch.from_numpy(cap.blocks).to(cuda_device)
+    for call in (lambda: mxu_fft.ifft_head(x, 100, "matmul3", "high"),
+                 lambda: mxu_fft.windowed_dft(x, np.arange(7, 111),
+                                              "matmul", "high"),
+                 lambda: mxu_fft.fft_ramped(
+                     x, torch.zeros(len(x), device=cuda_device), "matmul",
+                     "high")):
+        call()
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.parametrize("kw,launches", [
+    (dict(fft_impl="matmul"), 1),                    # windowed carrier
+    (dict(fft_impl="matmul3"), 1),
+    (dict(fft_impl="matmul", carrier_fast="off"), 2),
+    (dict(fft_impl="matmul", sync_mode="integer"), 2),
+    (dict(fft_impl="matmul", gate_capacity=4), 2),   # windowed + overflow
+])
+def test_transform_paths_on_card_match_cpu(cuda_device, kw, launches):
+    cap = capture()
+    raw = iq.iq_to_raw(cap.blocks)
+    card, cpu = pair(cuda_device, **kw)
+    before = pp.launches
+    got = card.detect_raw(torch.from_numpy(raw).to(cuda_device))
+    torch.cuda.synchronize()
+    assert pp.launches == before + launches
+    assert_same(got, cpu.detect_raw(raw))
+
+
+def test_pallas_off_refused_on_card(cuda_device):
+    """The card has no plain reduction path: a CUDA detector refuses
+    use_pallas='off' and launches nothing."""
+    before = pp.launches
+    with pytest.raises(ValueError, match="use_pallas='off'"):
+        pair(cuda_device, use_pallas="off")
+    assert pp.launches == before
+
+
+def test_windowed_capture_gate_on_card_matches_cpu(cuda_device):
+    cap = capture(bursts_every=3, seed=21)
+    raw = iq.iq_to_raw(cap.blocks)
+    card = CarrierGate(BLOCK, (7, 110), (0.0, 15.0, 0.0),
+                       fft_impl="matmul", device=cuda_device)
+    cpu = CarrierGate(BLOCK, (7, 110), (0.0, 15.0, 0.0), fft_impl="matmul",
+                      device="cpu")
+    before = pp.launches
+    for k, (g, r) in enumerate(zip(card(raw), cpu(raw))):
+        g, r = g.cpu().numpy(), r.numpy()
+        if k < 2:
+            np.testing.assert_array_equal(g, r)
+        else:
+            np.testing.assert_allclose(g, r, rtol=1e-4)
+    assert pp.launches == before

@@ -157,13 +157,54 @@ def test_resolve_device():
         device_mod.resolve_device("gpu")
 
 
-def test_unported_flags_are_absent(tmp_path):
-    """The JAX CLI's TPU knobs have no counterpart in the port."""
-    for flag in ("--pallas=on", "--fft-impl=xla", "--fft-precision=high",
-                 "--carrier-fast=off", "--carrier-precision=high",
-                 "--ramp-fast=off"):
-        with pytest.raises(SystemExit):
-            main(detect_args(0, tmp_path / "x.toad", extra=[flag]))
+TRANSFORM_FLAGS = {  # flag: (config field, JAX default, choices)
+    "--pallas": ("use_pallas", "auto", ("auto", "on", "off")),
+    "--fft-impl": ("fft_impl", "auto", ("auto", "matmul", "matmul3", "xla")),
+    "--fft-precision": ("fft_precision", "highest",
+                        ("highest", "high", "default")),
+    "--carrier-fast": ("carrier_fast", "auto", ("auto", "off")),
+    "--carrier-precision": ("carrier_precision", "auto",
+                            ("auto", "highest", "high", "default")),
+    "--ramp-fast": ("ramp_fast", "auto", ("auto", "off")),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(TRANSFORM_FLAGS))
+def test_transform_flags_accepted_and_validated(tmp_path, monkeypatch,
+                                                flag):
+    """The JAX CLI's transform knobs: every choice reaches the
+    detector's config (the default when the flag is absent), and a value
+    outside the choices is a usage error."""
+    field, default, choices = TRANSFORM_FLAGS[flag]
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_detector(template, config, device):
+        seen.append(config)
+        raise Stop
+
+    monkeypatch.setattr(port_detect, "BatchDetector", fake_detector)
+    for extra in [[]] + [[flag, v] for v in choices]:
+        with pytest.raises(Stop):
+            main(detect_args(0, tmp_path / "x.toad", extra=extra))
+    assert [getattr(c, field) for c in seen] == [default] + list(choices)
+    assert getattr(port_detect.DetectorConfig(), field) == default
+    with pytest.raises(SystemExit):
+        main(detect_args(0, tmp_path / "x.toad", extra=[flag, "bogus"]))
+
+
+def test_pallas_off_refused_on_the_card(tmp_path, capsys):
+    """--pallas off with --device cuda is a usage error, raised before
+    the device is resolved: the card has no plain reduction path."""
+    with pytest.raises(SystemExit) as exc:
+        main(detect_args(0, tmp_path / "x.toad",
+                         extra=["--pallas", "off", "--device", "cuda"]))
+    assert exc.value.code == 2
+    assert "--pallas off runs the plain reductions, which only --device " \
+        "cpu runs" in capsys.readouterr().err
+    assert not (tmp_path / "x.toad").exists()
 
 
 KITCHEN_SINK = """
@@ -363,7 +404,9 @@ def _jax_package_names(path):
      for d, _, fs in os.walk(os.path.join(ROOT, "thrifty_tpu_torch"))
      for f in fs if f.endswith(".py")]
     + ["chip_smoke.py", os.path.join("scripts", "profile_torch_detect.py"),
-       os.path.join("scripts", "network_demo_torch.py")]))
+       os.path.join("scripts", "network_demo_torch.py"),
+       os.path.join("scripts", "accuracy_sweep_torch.py"),
+       os.path.join("scripts", "tf32_drift_torch.py")]))
 def test_port_imports_only_host_modules(rel):
     """The port and its card scripts import nothing of the JAX package,
     not even its numpy host modules (the port keeps its own copies),

@@ -166,6 +166,21 @@ def test_state_is_checked():
     (dict(sync_mode="preshift", num_preshift=1), "num_preshift"),
     (dict(gate_capacity=-1), "gate_capacity"),
     (dict(history_len=10), "history_len"),
+    (dict(use_pallas="ON"), "unknown use_pallas 'ON': expected 'auto', "
+                            "'on' or 'off'"),
+    (dict(fft_impl="fftw"), "unknown fft_impl 'fftw': expected 'auto', "
+                            "'matmul', 'matmul3' or 'xla'"),
+    (dict(fft_precision="quad"), "unknown fft_precision 'quad': expected "
+                                 "'highest', 'high' or 'default'"),
+    (dict(carrier_fast="on"), "unknown carrier_fast 'on': expected 'auto' "
+                              "or 'off'"),
+    (dict(carrier_precision="hi"), "unknown carrier_precision 'hi': "
+                                   "expected 'auto', 'highest', 'high' or "
+                                   "'default'"),
+    (dict(ramp_fast="on"), "unknown ramp_fast 'on': expected 'auto' or "
+                           "'off'"),
+    (dict(gate_capacity=8, use_pallas="on"),
+     "gate_capacity and use_pallas='on' are mutually exclusive"),
 ])
 def test_unported_options_raise(kw, match):
     """Every option of the JAX detector is ported; values it refuses are

@@ -22,7 +22,7 @@ from thrifty_tpu.dsp import template as template_mod  # noqa: E402
 from thrifty_tpu.dsp import xcorr as jxcorr  # noqa: E402
 from thrifty_tpu_torch.dsp import carrier, dirichlet, iq, shift, \
     xcorr  # noqa: E402
-from thrifty_tpu_torch.dsp import fft as tfft  # noqa: E402
+from thrifty_tpu_torch.dsp import mxu_fft as tfft  # noqa: E402
 
 N = 2048
 

@@ -13,12 +13,17 @@ reduction's peak and energy into the noise estimate and threshold here
 The carrier peak filter (:func:`detect_peak_filtered`) searches the
 argmax of a FIR-filtered magnitude window, which the power/peak
 reduction cannot do; it runs as torch ops on the detector's device.
+So does the windowed carrier stage (:func:`detect_windowed`): a DFT at
+the window's bins only, its argmax over [B, W] and the spectrum energy
+from Parseval on the time-domain block.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from thrifty_tpu_torch.dsp import mxu_fft
 
 
 def fft_window_indices(start: int, stop: int, length: int) -> np.ndarray:
@@ -126,3 +131,61 @@ def detect_peak_filtered(fft_mag: torch.Tensor, weights,
             fft_mag, dim=-1, correction=0)
     detected = peak_mag > torch.sqrt(torch.clamp(thresh_sq, min=0.0))
     return detected, peak_idx, peak_mag, noise
+
+
+def windowed_selection(carrier_window, thresh_coeffs, n, fft_impl,
+                       margin=0):
+    """Eligibility and index sets of the windowed carrier DFT.
+
+    Returns ``(sel int32, ext int64)`` when the windowed stage applies --
+    an explicit carrier window, no stddev threshold term (it needs every
+    bin's magnitude), a matmul FFT impl, and the window plus ``margin``
+    wrapped neighbour bins a side within n // 8 -- else ``None``.
+    ``sel`` are the window's FFT bins in window order; ``ext`` adds the
+    interpolation margin.  Shared by the detector's carrier stage and
+    the capture gate (JAX ``carrier.windowed_selection``).
+    """
+    if carrier_window is None or thresh_coeffs[2]:
+        return None
+    if not mxu_fft._use_matmul(fft_impl):
+        return None
+    sel = fft_window_indices(carrier_window[0], carrier_window[1], n)
+    if len(sel) + 2 * margin > n // 8:
+        return None
+    ext = (int(sel[0]) - margin
+           + np.arange(len(sel) + 2 * margin)) % n
+    return sel.astype(np.int32), ext.astype(np.int64)
+
+
+def detect_windowed(blocks: torch.Tensor, sel: torch.Tensor, ext,
+                    margin: int, thresh_coeffs, fft_impl="auto",
+                    fft_precision="highest"):
+    """Carrier detection from a DFT at the window's bins only (JAX
+    ``carrier.detect_windowed``, carrier.py:225-260).
+
+    The carrier stage needs only the windowed argmax with its
+    interpolation neighbourhood and the spectrum energy, which is
+    Parseval's ``n * sum|x|^2`` on the time-domain block, so no [B, N]
+    spectrum is made.  ``sel`` (int64 on the blocks' device), ``ext``
+    (numpy) and ``margin`` come from :func:`windowed_selection`.
+
+    Returns ``(det, idx int32, peak_mag, noise, thresh_sq, mag_ext,
+    rel)``: the verdict, peak FFT bin, peak magnitude, noise RMS and
+    squared threshold (:func:`noise_and_threshold_sq`), the extended
+    window's magnitudes and the peak's position in the core window.
+    """
+    n = blocks.shape[-1]
+    mag_w = torch.abs(mxu_fft.windowed_dft(blocks, ext, fft_impl,
+                                           fft_precision))
+    core = mag_w[..., margin:margin + len(sel)] if margin else mag_w
+    rel = torch.argmax(core, dim=-1)
+    peak_mag = torch.gather(core, -1, rel[..., None])[..., 0]
+    idx = sel[rel].to(torch.int32)
+    # Parseval: sum|FFT|^2 = N * sum|x|^2 (float32 rounding differs from
+    # the spectral sum by ~1e-6 relative).
+    energy = n * torch.sum(torch.square(blocks.real)
+                           + torch.square(blocks.imag), dim=-1)
+    noise, thresh_sq = noise_and_threshold_sq(
+        energy, torch.square(peak_mag), n, thresh_coeffs)
+    det = peak_mag > torch.sqrt(torch.clamp(thresh_sq, min=0.0))
+    return det, idx, peak_mag, noise, thresh_sq, mag_w, rel.to(torch.int32)

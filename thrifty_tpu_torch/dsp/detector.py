@@ -45,6 +45,16 @@ With ``gate_capacity`` C the correlation runs only on the batch's first
 C carrier-positive rows, compacted into a contiguous [C, N] tensor; see
 :meth:`BatchDetector._corr_stage_gated` and :class:`PendingBatch` for
 the overflow contract.
+
+The transforms are :mod:`mxu_fft`'s under ``fft_impl`` (``torch.fft``,
+cuFFT on the card, by default; the matmul family on request) at
+``fft_precision``.  With a matmul impl, fractional sync, a carrier window
+and no peak filter or carrier stddev term, the carrier stage is a DFT at
+the window's bins only (``carrier_fast``, :func:`carrier.detect_windowed`)
+whose argmax runs as torch ops over [B, W]; the correlation still
+launches the kernel: one launch per batch.  ``use_pallas='off'`` (the
+plain reductions) is for a CPU detector only: on a CUDA device the
+kernel is the only reduction, and the detector refuses 'off'.
 """
 
 from __future__ import annotations
@@ -57,9 +67,8 @@ import numpy as np
 import torch
 
 from thrifty_tpu_torch.device import as_device
-from thrifty_tpu_torch.dsp import carrier, dirichlet, power_peak, shift, \
-    unfold, xcorr
-from thrifty_tpu_torch.dsp import fft as fft_mod
+from thrifty_tpu_torch.dsp import carrier, dirichlet, mxu_fft, power_peak, \
+    shift, unfold, xcorr
 from thrifty_tpu_torch.dsp import iq as iq_mod
 
 STATE_KEYS = ("tmpl_fft_conj", "tmpl_energy", "carrier_mask",
@@ -74,10 +83,9 @@ CORR_INTERPS = ("gaussian", "parabolic", "cosine", "autocorr", "none",
 class DetectorConfig:
     """Static configuration of the batched detector.
 
-    The fields and defaults are those of the JAX package's
-    ``DetectorConfig``; its TPU-only knobs (``use_pallas``, ``fft_impl``,
-    ``fft_precision``, ``carrier_fast``, ``carrier_precision``,
-    ``ramp_fast``) have no counterpart here.
+    The fields, defaults and accepted values are those of the JAX
+    package's ``DetectorConfig``; the transform knobs mean here what the
+    comments say.
     """
 
     block_len: int = 16384
@@ -94,7 +102,47 @@ class DetectorConfig:
     carrier_interp: str = "auto"
     # 0 = off, -1 = (block_len // template_len - 1) * 2, else the length.
     peak_filter_len: int = 0
+    # The power/peak reductions: 'auto' and 'on' launch the CUDA kernel
+    # (csrc/power_peak.cu) on the card -- unlike JAX, whose 'auto' means
+    # off, because on the H100 the kernel takes 0.022 ms against the
+    # plain reductions' 0.104 ms at [256, 16384] (PERF.md section 6);
+    # 'on' also refuses what JAX's kernel program refuses (batch % 8,
+    # block_len % 2048, the peak filter, the gate).  'off' names the
+    # plain reductions, which a CPU detector runs under every value; a
+    # CUDA detector refuses it.
+    use_pallas: str = "auto"
+    # Transforms (dsp/mxu_fft.py): 'auto'/'xla' = torch.fft (cuFFT on
+    # the card), 'matmul' = DFT / four-step as GEMMs, 'matmul3' = the
+    # same with Karatsuba's three real products.
+    fft_impl: str = "auto"
+    # GEMM precision of the matmul impls on the card: 'highest' float32,
+    # 'high' TF32 tensor cores, 'default' bf16 operands (CPU: float32).
+    fft_precision: str = "highest"
+    # Windowed carrier DFT: 'auto' = on when eligible (matmul impl,
+    # fractional sync, a carrier window, no peak filter, no carrier
+    # stddev term); 'off' = always the full-FFT carrier stage.
+    carrier_fast: str = "auto"
+    # Precision of the carrier transform only: 'auto' follows
+    # fft_precision; applied only in fractional sync, where the carrier
+    # transform is not reused by the correlation.
+    carrier_precision: str = "auto"
+    # Separable fractional-sync ramp on the four-step path: 'auto' = on
+    # under a matmul impl, 'off' = the explicit full ramp.
+    ramp_fast: str = "auto"
     gate_capacity: int = 0
+
+
+# The transform knobs' values, worded as the JAX detector's errors.
+_CHOICES = (
+    ("use_pallas", ("auto", "on", "off"), "'auto', 'on' or 'off'"),
+    ("fft_impl", mxu_fft.IMPLS, "'auto', 'matmul', 'matmul3' or 'xla'"),
+    ("fft_precision", ("highest", "high", "default"),
+     "'highest', 'high' or 'default'"),
+    ("carrier_fast", ("auto", "off"), "'auto' or 'off'"),
+    ("carrier_precision", ("auto", "highest", "high", "default"),
+     "'auto', 'highest', 'high' or 'default'"),
+    ("ramp_fast", ("auto", "off"), "'auto' or 'off'"),
+)
 
 
 def _validate(config: DetectorConfig, template: np.ndarray):
@@ -115,9 +163,18 @@ def _validate(config: DetectorConfig, template: np.ndarray):
     if config.carrier_interp not in ("auto",) + CARRIER_INTERPS:
         raise ValueError("unknown carrier_interp: "
                          + str(config.carrier_interp))
+    for name, allowed, wording in _CHOICES:
+        if getattr(config, name) not in allowed:
+            raise ValueError("unknown {} {!r}: expected {}".format(
+                name, getattr(config, name), wording))
     if config.gate_capacity < 0:
         raise ValueError("gate_capacity must be >= 0 (got {})".format(
             config.gate_capacity))
+    if config.gate_capacity and config.use_pallas == "on":
+        # The kernel program reduces the whole batch; JAX refuses the
+        # pair rather than ignoring one knob.
+        raise ValueError("gate_capacity and use_pallas='on' are mutually "
+                         "exclusive")
     if config.history_len < template.shape[-1] - 1:
         raise ValueError("history_len must be >= template_len - 1")
 
@@ -176,6 +233,12 @@ class BatchDetector:
                  device="cuda", state=None):
         template = np.asarray(template, dtype=np.float64)
         _validate(config, template)
+        if config.use_pallas == "off" and torch.device(device).type \
+                == "cuda":
+            raise ValueError(
+                "use_pallas='off' runs the plain power/peak reductions, "
+                "which only a CPU detector runs: on a CUDA device the "
+                "kernel is the only reduction ('auto' or 'on')")
         self.config = config
         self.device = as_device(device)
         self.bank = template.ndim == 2
@@ -254,7 +317,10 @@ class BatchDetector:
         hold them, without the leading underscore (``tmpl_fft_conj``,
         ``tmpl_energy``, ``carrier_mask``, ``corr_mask_full``, and per
         option ``preshift_bank``, ``peak_filter``, ``carrier_sel``,
-        ``autocorr_table``/``autocorr_dtable``), moved to ``device``."""
+        ``autocorr_table``/``autocorr_dtable``, and ``carrier_win``, the
+        windowed carrier stage's (sel, ext, half-width)), moved to
+        ``device``.  A ``carrier_win`` in the state selects the windowed
+        carrier stage, as it does in the JAX detector it came from."""
         return cls(template, config, device=device, state=state)
 
     @staticmethod
@@ -301,7 +367,33 @@ class BatchDetector:
             table, dtable = xcorr.autocorr_tables(template)
             state["autocorr_table"] = table
             state["autocorr_dtable"] = dtable
+        win = BatchDetector._carrier_window(config, tlen)
+        if win is not None:
+            state["carrier_win"] = win
         return state
+
+    @staticmethod
+    def _carrier_window(config, template_len):
+        """JAX's ``_carrier_win``: (sel int32, ext int64, half-width) of
+        the windowed carrier stage, or None where it does not apply."""
+        interp = config.carrier_interp
+        if interp == "auto":
+            interp = "parabolic" if config.sync_mode == "integer" \
+                else "dirichlet"
+        if interp in ("dirichlet", "polyfit"):
+            half = config.interp_width // 2
+        elif interp == "none":
+            half = 0
+        else:  # parabolic / gaussian / cosine: 3-point fits
+            half = 1
+        if config.carrier_fast != "auto" \
+                or config.sync_mode != "fractional" \
+                or config.peak_filter_len != 0:
+            return None
+        win = carrier.windowed_selection(
+            config.carrier_window, config.carrier_thresh, config.block_len,
+            config.fft_impl, margin=half)
+        return None if win is None else (win[0], win[1], half)
 
     def _load_state(self, state):
         cfg = self.config
@@ -313,6 +405,8 @@ class BatchDetector:
             need += ["peak_filter", "carrier_sel"]
         if cfg.corr_interp == "autocorr":
             need += ["autocorr_table", "autocorr_dtable"]
+        if self._carrier_window(cfg, self.template_len) is not None:
+            need.append("carrier_win")
         missing = set(need) - set(state)
         if missing:
             raise ValueError("state lacks {}".format(sorted(missing)))
@@ -365,13 +459,44 @@ class BatchDetector:
                 torch.tensor(np.asarray(state[k], dtype=np.float32),
                              device=self.device)
                 for k in ("autocorr_table", "autocorr_dtable"))
+        # The windowed carrier stage runs where the state holds a window
+        # (JAX's own ``_carrier_win`` included): the same path as the
+        # detector the constants came from.
+        self._carrier_win = None
+        win = state.get("carrier_win")
+        if win is not None:
+            sel, ext, half = win
+            sel = np.asarray(sel, dtype=np.int64)
+            ext = np.asarray(ext, dtype=np.int64)
+            half = int(half)
+            if sel.ndim != 1 or not len(sel) or len(ext) != len(sel) \
+                    + 2 * half or np.any((ext < 0) | (ext >= n)) \
+                    or np.any(sel != ext[half:half + len(sel)]):
+                raise ValueError("carrier_win must be (sel, ext, half) with "
+                                 "ext = sel widened by half bins a side")
+            self._carrier_win = (torch.tensor(sel, device=self.device), ext,
+                                 half)
+            self._carrier_win_offs = torch.arange(
+                -half, half + 1, device=self.device)
 
     # -- the detect program --------------------------------------------------
 
     def _detect_batch(self, blocks):
         cfg = self.config
-        fft = fft_mod.fft(blocks)
-        carrier_out = self._carrier_stage(fft)
+        if cfg.use_pallas == "on":
+            self._check_kernel_program(blocks.shape[0])
+        # The carrier transform's precision: carrier_precision only where
+        # the carrier transform is not reused by the correlation
+        # (fractional sync: the windowed DFT or the full carrier FFT).
+        c_prec = cfg.fft_precision
+        if cfg.sync_mode == "fractional" and cfg.carrier_precision != "auto":
+            c_prec = cfg.carrier_precision
+        if self._carrier_win is not None:
+            fft = None  # fractional sync reads the blocks, not the FFT
+            carrier_out = self._carrier_stage_windowed(blocks, c_prec)
+        else:
+            fft = mxu_fft.fft(blocks, cfg.fft_impl, c_prec)
+            carrier_out = self._carrier_stage(fft)
         c_det, c_idx, c_off = carrier_out[:3]
 
         # Stages 3-5 read the time-domain blocks (fractional: ramp +
@@ -392,6 +517,37 @@ class BatchDetector:
                                 overflow, redo)
         return PendingBatch(self._finish_outputs(
             *carrier_out, *self._corr_stage(*rows)))
+
+    def _check_kernel_program(self, batch):
+        """What JAX's kernel program (``use_pallas='on'``) refuses, worded
+        as its error (thrifty_tpu/dsp/detector.py:414-436)."""
+        cfg = self.config
+        if cfg.block_len % 2048 or batch % 8 or cfg.peak_filter_len:
+            raise ValueError(
+                "use_pallas='on' requires: batch divisible by 8 "
+                "(got {}), block_len divisible by 2048, and no "
+                "carrier peak filter".format(batch))
+
+    def _carrier_stage_windowed(self, blocks, c_prec):
+        """Stages 1-2 from the DFT at the carrier window's bins plus the
+        interpolator's margin (:func:`carrier.detect_windowed`): argmax,
+        noise and threshold over [B, W] as torch ops, the sub-bin fit on
+        the extended window's magnitudes.  Returns (c_det, c_idx, c_off,
+        c_mag, c_noise)."""
+        cfg = self.config
+        sel, ext, half = self._carrier_win
+        c_det, c_idx, c_mag, c_noise, _, mag_w, rel = \
+            carrier.detect_windowed(blocks, sel, ext, half,
+                                    cfg.carrier_thresh, cfg.fft_impl, c_prec)
+        if self._interp is None:
+            c_off = torch.zeros(c_idx.shape, dtype=torch.float32,
+                                device=blocks.device)
+        else:
+            nidx = (rel.to(torch.int64) + half)[..., None] \
+                + self._carrier_win_offs
+            neigh = torch.gather(mag_w, -1, nidx)
+            c_off = torch.where(c_det, self._interp(neigh), 0.0)
+        return c_det, c_idx, c_off, c_mag, c_noise
 
     def _carrier_stage(self, fft):
         """Stages 1-2: carrier peak, energy (and magnitude stats) in one
@@ -442,9 +598,9 @@ class BatchDetector:
         u_const, u_snr, u_std = cfg.corr_thresh
         corr_full, spec = self._remove_carrier_and_despread(src, c_idx,
                                                             c_off)
-        out = power_peak.fused_power_peak(
-            corr_full.reshape(-1, n), self._corr_mask_full,
-            stats_mask=self._corr_stats)
+        out = power_peak.fused_power_peak(corr_full.reshape(-1, n),
+                                          self._corr_mask_full,
+                                          stats_mask=self._corr_stats)
         lead = corr_full.shape[:-1]
         p_idx = out[0].reshape(lead)
         p_mag = torch.sqrt(out[1]).reshape(lead)
@@ -530,7 +686,9 @@ class BatchDetector:
             shift_total = -(signed.to(torch.float32) + c_off)
             if cfg.sync_mode == "fractional":
                 spec = xcorr.despread_spec(
-                    shift.fractional_shift_fft(src, shift_total),
+                    shift.fractional_shift_fft(
+                        src, shift_total, cfg.fft_impl, cfg.fft_precision,
+                        separable=cfg.ramp_fast == "auto"),
                     self._tmpl_fft_conj)
             else:
                 # preshift: integer roll + the template spectrum
@@ -544,7 +702,10 @@ class BatchDetector:
                 if self.bank:
                     shifted = shifted[:, None, :]
                 spec = shifted * tconj
-        return fft_mod.ifft(spec), spec
+        # Full length, as JAX's kernel program asks: the reduction masks
+        # the non-unique lags itself.
+        return mxu_fft.ifft_head(spec, n, cfg.fft_impl,
+                                 cfg.fft_precision), spec
 
     @staticmethod
     def _signal_energy(blocks):

@@ -4,7 +4,8 @@ Two modes, matching the reference's two numerical variants:
 
 - ``fractional``: shift each block by a fractional number of bins with
   the shift theorem -- a phase ramp in the time domain, then an FFT
-  (reference thrifty/carrier_sync.py:222-238).
+  (reference thrifty/carrier_sync.py:222-238); the ramp and the
+  transform are ``mxu_fft.fft_ramped``'s.
 - ``integer``: circular roll of the block's FFT by the integer peak bin
   (fastdet/corr_detector.cpp:13-17,178-182); no second FFT.
 """
@@ -13,14 +14,19 @@ from __future__ import annotations
 
 import torch
 
-from thrifty_tpu_torch.dsp import fft as fft_mod
+from thrifty_tpu_torch.dsp import mxu_fft
 
 
-def fractional_shift_fft(blocks: torch.Tensor,
-                         shift: torch.Tensor) -> torch.Tensor:
+def fractional_shift_fft(blocks: torch.Tensor, shift: torch.Tensor,
+                         impl="auto", precision="highest",
+                         separable=False) -> torch.Tensor:
     """FFT of ``blocks`` [..., N] shifted by ``shift`` [...] bins
-    (positive moves energy to higher bins)."""
-    return fft_mod.fft_ramped(blocks, shift)
+    (positive moves energy to higher bins), with the transform ``impl``
+    and ``precision`` of :mod:`mxu_fft`.  ``separable`` factors the ramp
+    over the four-step split (matmul impls only; JAX's
+    ``ramp='separable'``); else the explicit reference-shaped product."""
+    return mxu_fft.fft_ramped(blocks, shift, impl, precision,
+                              separable=separable)
 
 
 def integer_roll_fft(fft: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

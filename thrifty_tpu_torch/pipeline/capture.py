@@ -8,8 +8,11 @@ archive only the blocks that pass as base64 ``.card`` lines.
 Blocks are gated a batch [B, N] at a time by :class:`CarrierGate`: the
 uint8 -> complex64 conversion and a full FFT on the device, then one
 launch of the fused power/peak reduction (``csrc/power_peak.cu`` on a
-CUDA card) for the windowed carrier peak and the spectrum energy.  Only
-the verdicts and peak statistics come back to the host.  With
+CUDA card) for the windowed carrier peak and the spectrum energy.  Under
+``--fft-impl matmul``/``matmul3`` the gate is a DFT at the carrier
+window's bins instead (``carrier.detect_windowed``: GEMMs, its argmax
+as torch ops, no kernel launch).  Only the verdicts and peak statistics
+come back to the host.  With
 ``--device-unfold`` the host uploads only the stream's new bytes, the
 overlap-save rows are built on the device, and the host rebuilds just
 the hit rows it archives.
@@ -18,8 +21,7 @@ Without ``--raw-in``/``--rtl-tcp``/``--rtlsdr`` an external SDR capture
 binary is spawned instead (``--capture-cmd``, reference
 thrifty/fastcard_capture.py:35-93).  A stddev threshold term d*var(|X|)
 over all N bins comes from the same launch (the reduction's magnitude
-sums with an all-true stats mask).  Not ported: the JAX package's
-windowed-DFT gate.
+sums with an all-true stats mask).
 """
 
 from __future__ import annotations
@@ -37,9 +39,8 @@ import torch
 from thrifty_tpu_torch.config import settings as settings_mod
 from thrifty_tpu_torch.config.parsers import normalize_freq_range
 from thrifty_tpu_torch.device import DEVICES, as_device, resolve_device
-from thrifty_tpu_torch.dsp import carrier, iq, power_peak, unfold, \
-    xcorr
-from thrifty_tpu_torch.dsp import fft as fft_mod
+from thrifty_tpu_torch.dsp import carrier, iq, mxu_fft, power_peak, \
+    unfold, xcorr
 from thrifty_tpu_torch.io import card as card_io
 from thrifty_tpu_torch.io.stream import StreamPump
 from thrifty_tpu_torch.pipeline.host import PinnedUpload, open_source
@@ -53,25 +54,44 @@ class CarrierGate:
     then the signed-variance noise and threshold of
     ``carrier.noise_and_threshold_sq``; a stddev term d adds
     d*var(|X|) from the same launch's magnitude sums (JAX computes
-    ``jnp.var(mag)``, thrifty_tpu/pipeline/capture.py:90-99).  Returns
-    tensors on the gate's device: (detected bool, argmax int32,
-    magnitude, noise, threshold).
+    ``jnp.var(mag)``, thrifty_tpu/pipeline/capture.py:90-99).  The
+    transform is ``mxu_fft.fft(fft_impl, fft_precision)``; under a matmul
+    impl without a stddev term the gate is the windowed carrier DFT
+    instead (``carrier.windowed_selection``/``detect_windowed``, shared
+    with the detector).  Returns tensors on the gate's device: (detected
+    bool, argmax int32, magnitude, noise, threshold).
     """
 
     def __init__(self, block_len, carrier_window, carrier_thresh,
-                 history_len=None, device="cuda"):
+                 history_len=None, fft_impl="auto", fft_precision="highest",
+                 device="cuda"):
+        mxu_fft._use_matmul(fft_impl)
+        mxu_fft._resolve_precision(fft_precision)
         self.block_len = block_len
         self.history_len = history_len  # needed for gate_stream only
         self.device = as_device(device)
         self._mask = power_peak.Mask(
             carrier.window_mask(carrier_window, block_len), self.device)
         self._thresh = tuple(carrier_thresh)
+        self._fft_impl = fft_impl
+        self._fft_precision = fft_precision
         self._stats = (power_peak.Mask(np.ones(block_len, bool), self.device)
                        if self._thresh[2] else None)
+        self._win = carrier.windowed_selection(
+            carrier_window, self._thresh, block_len, fft_impl)
+        if self._win is not None:
+            self._win_sel = torch.tensor(self._win[0].astype(np.int64),
+                                         device=self.device)
         self._stream = None
 
     def _detect_blocks(self, blocks):
-        fft = fft_mod.fft(blocks)
+        if self._win is not None:
+            det, idx, mag, noise, thresh_sq, _, _ = carrier.detect_windowed(
+                blocks, self._win_sel, self._win[1], 0, self._thresh,
+                self._fft_impl, self._fft_precision)
+            return det, idx, mag, noise, torch.sqrt(
+                torch.clamp(thresh_sq, min=0.0))
+        fft = mxu_fft.fft(blocks, self._fft_impl, self._fft_precision)
         out = power_peak.fused_power_peak(fft, self._mask,
                                           stats_mask=self._stats)
         idx, peak_pow, energy = out[:3]
@@ -265,6 +285,7 @@ def _record_main(config, args):
         config.carrier_window, config.sample_rate / config.block_size)
     gate = CarrierGate(config.block_size, window, config.carrier_threshold,
                        history_len=config.block_history,
+                       fft_impl=args.fft_impl,
                        device=resolve_device(args.device))
 
     in_stream = open_source(args, config, args.raw_in)
@@ -375,6 +396,14 @@ def _main(argv=None):
                         help="with --rtl-tcp: survive server restarts, "
                              "retrying up to N times with exponential "
                              "backoff [default: 0 = exit on disconnect]")
+    parser.add_argument("--fft-impl", type=str, default="auto",
+                        choices=list(mxu_fft.IMPLS),
+                        help="transform of the carrier gate (dsp/mxu_fft.py):"
+                             " 'auto'/'xla' = torch.fft (cuFFT on the card) "
+                             "and the power/peak kernel; 'matmul'/'matmul3' "
+                             "= the windowed carrier DFT as GEMMs (full "
+                             "matmul FFT with a stddev term) "
+                             "[default: auto]")
     parser.add_argument("--capture-cmd", type=str, default="fastcard",
                         help="capture binary to spawn [default: fastcard]")
     parser.add_argument("--device", type=str, default="cuda",

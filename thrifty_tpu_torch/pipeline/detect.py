@@ -19,9 +19,12 @@ correlation on the carrier-positive blocks only; the config key
 preshift sync.  ``--corr-interp``, ``--carrier-interp`` and
 ``--peak-filter`` are the JAX CLI's; a 2-D [T, L] template file is a
 code-division bank, and ``--emit-txid`` writes its winning template as
-the txid.  The JAX CLI's TPU knobs (``--pallas``, ``--fft-impl``,
-``--fft-precision``, ``--carrier-fast``, ``--carrier-precision``,
-``--ramp-fast``) have no counterpart here.
+the txid.  The JAX CLI's transform knobs keep their names, choices and
+defaults: ``--pallas`` (the power/peak kernel; 'off', its plain
+version, with ``--device cpu`` only), ``--fft-impl`` (cuFFT or the matmul transforms),
+``--fft-precision`` and ``--carrier-precision`` (float32, TF32 or bf16
+GEMMs), ``--carrier-fast`` (the windowed carrier DFT) and
+``--ramp-fast`` (the separable fractional-sync ramp).
 """
 
 from __future__ import annotations
@@ -239,6 +242,49 @@ def _main(argv=None):
                              "0 = off; the filtered search runs as torch "
                              "ops, not the power/peak kernel) "
                              "[default: 0]")
+    parser.add_argument("--pallas", type=str, default="auto",
+                        choices=["auto", "on", "off"],
+                        help="power/peak reductions: 'auto'/'on' = the "
+                             "CUDA kernel on the card ('on' also refuses "
+                             "a batch not divisible by 8, a block not "
+                             "divisible by 2048, --peak-filter and "
+                             "--gate-capacity, as JAX's kernel program "
+                             "does), 'off' = the plain torch reductions, "
+                             "with --device cpu only: on the card the "
+                             "kernel is the only reduction [default: auto]")
+    parser.add_argument("--fft-impl", type=str, default="auto",
+                        choices=["auto", "matmul", "matmul3", "xla"],
+                        help="transforms: 'auto'/'xla' = torch.fft "
+                             "(cuFFT on the card), 'matmul' = DFT / "
+                             "four-step as GEMMs, 'matmul3' = the same "
+                             "with Karatsuba's three real products; the "
+                             "matmul impls also turn on the windowed "
+                             "carrier DFT and the separable ramp "
+                             "[default: auto]")
+    parser.add_argument("--fft-precision", type=str, default="highest",
+                        choices=["highest", "high", "default"],
+                        help="GEMM precision of the matmul transforms on "
+                             "the card: 'highest' = float32, 'high' = "
+                             "TF32 tensor cores, 'default' = bf16 "
+                             "operands (float32 on the CPU) "
+                             "[default: highest]")
+    parser.add_argument("--carrier-fast", type=str, default="auto",
+                        choices=["auto", "off"],
+                        help="windowed carrier DFT: 'off' forces the "
+                             "full-FFT carrier stage (2 power/peak "
+                             "launches per batch instead of 1) "
+                             "[default: auto = on when eligible]")
+    parser.add_argument("--carrier-precision", type=str, default="auto",
+                        choices=["auto", "highest", "high", "default"],
+                        help="GEMM precision of the carrier transform "
+                             "only (fractional sync) [default: auto = "
+                             "follow --fft-precision]")
+    parser.add_argument("--ramp-fast", type=str, default="auto",
+                        choices=["auto", "off"],
+                        help="separable fractional-sync ramp on the "
+                             "four-step path: 'off' forces the explicit "
+                             "full-ramp product [default: auto = on "
+                             "under a matmul impl]")
     parser.add_argument("--emit-txid", action="store_true",
                         help="write .toads lines with txid taken from the "
                              "winning template of a template bank (the "
@@ -260,6 +306,10 @@ def _main(argv=None):
     if live is not None and args.input != "-":
         parser.error("give either an input file or a live SDR source, "
                      "not both")
+    if args.pallas == "off" and args.device == "cuda":
+        parser.error("--pallas off runs the plain reductions, which only "
+                     "--device cpu runs: on the card the power/peak kernel "
+                     "is the only reduction")
     if args.device_unfold:
         if not args.raw and live is None:
             parser.error("--device-unfold needs a raw stream input "
@@ -290,6 +340,12 @@ def _main(argv=None):
         corr_interp=args.corr_interp,
         carrier_interp=args.carrier_interp,
         peak_filter_len=args.peak_filter,
+        use_pallas=args.pallas,
+        fft_impl=args.fft_impl,
+        fft_precision=args.fft_precision,
+        carrier_fast=args.carrier_fast,
+        carrier_precision=args.carrier_precision,
+        ramp_fast=args.ramp_fast,
         gate_capacity=args.gate_capacity,
     ), device=device)
 

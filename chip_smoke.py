@@ -55,6 +55,13 @@ the port on the card:
   tailed ``.toad`` files against the server run in process;
 - ``template_extract`` on the card against the CPU on the full-size
   capture and on ``rx0.card``; ``doctor --selfcheck --batch 256``;
+- the ``bench`` command's programs at the deployment's geometry: the
+  batch program with a 64/128/256 sweep, complex64 input in integer
+  sync, ``selfcheck --wide``, an A/B of ``fft_impl=matmul``, the knee
+  A/B of ``gate_capacity=64``, ``e2e`` on a raw stream (host and device
+  unfold) and on a ``.card``, ``serve``, and ``stream`` in a child
+  process (a NCCL world of one): each rc 0, its JSON line's contract,
+  and the power/peak launches of every batch it queued;
 - the multi-rank streaming program (``thrifty_tpu_torch.parallel``), as
   ``__graft_entry__.dryrun_multichip`` runs JAX's: a gloo world of 4
   spawned ranks on an (rx=2, time=2) mesh, all on the one card, at a
@@ -80,6 +87,7 @@ last line, ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2345,6 +2353,197 @@ def doctor_phase(card_name):
     return {"doctor": launches / DOCTOR_BATCHES}
 
 
+# The bench phase: programs of `python -m thrifty_tpu_torch.cli bench` at
+# the deployment's geometry (block 16384, history 4920, the 4914-sample
+# template, bins 7-110, batch 256, a burst every 4 blocks, gate batch//2),
+# each run in this process through the CLI, as a user runs them.
+BENCH_RUNS = (
+    ("batch", ["--repeats", "3", "--scan-k", "8", "--sweep", "64,128,256"]),
+    ("batch c64 integer", ["--input", "c64", "--sync-mode", "integer",
+                           "--sweep", "none"]),
+    ("selfcheck wide", ["--program", "selfcheck", "--wide"]),
+    ("abcheck", ["--program", "abcheck", "--ab", "fft_impl=matmul"]),
+    ("abcheck knee gate", ["--program", "abcheck", "--ab-knee", "--ab",
+                           "gate_capacity=64"]),
+    ("e2e raw", ["--program", "e2e", "--input", "raw", "--e2e-bytes",
+                 "2e8"]),
+    ("e2e raw device-unfold", ["--program", "e2e", "--input", "raw",
+                               "--e2e-bytes", "2e8", "--device-unfold"]),
+    ("e2e card", ["--program", "e2e", "--input", "card", "--e2e-bytes",
+                  "5e7"]),
+    ("serve", ["--program", "serve"]),
+)
+# `--program stream` runs in a child process, a NCCL world of one, so no
+# process group outlives it here; the child counts as the phase does.
+BENCH_STREAM = r"""
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from thrifty_tpu_torch.cli import main
+from thrifty_tpu_torch.dsp import power_peak as pp
+with chip_smoke.counted_batches() as seen:
+    pp.launches = 0
+    rc = main(["bench", "--program", "stream"])
+    launches = pp.launches
+print(json.dumps({{"rc": rc, "launches": launches,
+                  "expected": chip_smoke.expected_launches(seen),
+                  "batches": len(seen)}}))
+"""
+
+
+@contextlib.contextmanager
+def counted_batches():
+    """Every batch a ``BatchDetector`` queues while the block runs, as
+    (detector, PendingBatch), read off the detector's one entry to its
+    detect program."""
+    from thrifty_tpu_torch.dsp.detector import BatchDetector
+
+    seen = []
+    original = BatchDetector._detect_batch
+
+    def counted(self, blocks):
+        pending = original(self, blocks)
+        seen.append((self, pending))
+        return pending
+
+    BatchDetector._detect_batch = counted
+    try:
+        yield seen
+    finally:
+        BatchDetector._detect_batch = original
+
+
+def expected_launches(seen):
+    """The power/peak launches the batches ``seen`` make: on the card 2
+    a batch (carrier and correlation), 1 where the carrier stage runs
+    without the kernel (the windowed carrier DFT, the peak filter), plus
+    1 for each gated batch that overflowed and re-ran its correlation;
+    none on the CPU."""
+    total = 0
+    for det, pending in seen:
+        if det.device.type == "cuda":
+            plain_carrier = det._carrier_win is not None \
+                or det._peak_filter is not None
+            total += (1 if plain_carrier else 2) + bool(pending.overflowed)
+    return total
+
+
+def bench_contract(data, label):
+    """The last JSON line's contract, as tests/test_bench.py checks the
+    JAX bench's, plus a positive value and a pass where one is graded."""
+    metric = data.get("metric")
+    check({"metric", "value", "unit", "vs_baseline"} <= set(data),
+          "bench {}: keys {}".format(label, sorted(data)))
+    check(data["value"] > 0 and data["vs_baseline"] > 0,
+          "bench {}: value {}".format(label, data["value"]))
+    if metric == "detect_throughput":
+        check(data["unit"] == "IQ_samples/s/chip", label + ": unit")
+        check(data["relay_degraded"] in (False, True)
+              and data["anomalously_fast"] in (False, True), label)
+        check(len(data["runs_sec_per_batch"]) >= 1 and all(
+            math.isfinite(r) for r in data["runs_sec_per_batch"]), label)
+        check({"batch", "iters", "sync_mode", "pallas", "input"}
+              <= set(data), label + ": diagnostic keys")
+        check(data["headline_batch"] == BATCH, label + ": headline batch")
+        check(data["device"].startswith("cuda:"), label + ": device")
+        if data["program"] == "batch":
+            check(data["method"] == "event_slope" and data["scan_k"] >= 1
+                  and data["clock"] == "cuda_events"
+                  and data["dispatch_chain_sec_per_batch"] > 0
+                  and data["scan_dispatch_times"]["t_k_s"]
+                  and data["scan_dispatch_times"]["t_2k_s"],
+                  label + ": method")
+        else:
+            check(data["program"] == "stream"
+                  and data["method"] == "wallclock_chain"
+                  and data["clock"] == "host", label + ": method")
+    elif metric.startswith("e2e_throughput_"):
+        check(data["unit"] == "IQ_samples/s" and data["blocks"] > 0
+              and data["drain"] == "host", label + ": e2e keys")
+    elif metric == "serve_throughput":
+        check(data["unit"] == "fixes/s", label + ": unit")
+    else:
+        check(metric in ("pallas_xla_selfcheck", "config_abcheck",
+                         "config_abcheck_knee")
+              and data["unit"] == "pass" and data["value"] == 1.0,
+              "bench {}: {} did not pass: {}".format(label, metric, data))
+    if metric == "pallas_xla_selfcheck":
+        check(data["devices"]["on"].startswith("cuda:")
+              and data["devices"]["off"] == "cpu" and data["wide"],
+              label + ": devices")
+
+
+def bench_line(out):
+    return json.loads([ln for ln in out.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def bench_phase(card_name):
+    """The port's ``bench`` programs on the card: each rc 0 with its JSON
+    contract, the graded ones passing, and the power/peak launches of
+    its batches (2 a batch, 1 on the windowed carrier path, +1 per gate
+    overflow)."""
+    phase("bench")
+    import io
+
+    from thrifty_tpu_torch.cli import main
+    from thrifty_tpu_torch.dsp import power_peak as pp
+
+    t_phase = time.perf_counter()
+    launches = batches = 0
+    for label, args in BENCH_RUNS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with counted_batches() as seen, contextlib.redirect_stdout(buf):
+            pp.launches = 0
+            rc = main(["bench"] + args)
+            got = pp.launches
+        seconds = time.perf_counter() - t0
+        check(rc == 0, "bench {}: rc {}".format(label, rc))
+        data = bench_line(buf.getvalue())
+        bench_contract(data, label)
+        want = expected_launches(seen)
+        overflows = sum(bool(p.overflowed) for _, p in seen)
+        check(got == want, "bench {}: {} power/peak launches, want {} ({} "
+              "batches, {} overflows)".format(label, got, want, len(seen),
+                                               overflows))
+        check(len(seen) > 0 or data["metric"] == "serve_throughput",
+              "bench {}: no detector batch".format(label))
+        launches += got
+        batches += sum(d.device.type == "cuda" for d, _ in seen)
+        print("bench {} ({:.1f} s; {} power/peak launches in {} batches, "
+              "{} overflows; {}): {}".format(
+                  label, seconds, got, len(seen), overflows, card_name,
+                  json.dumps(data)), flush=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", BENCH_STREAM.format(root=ROOT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, "bench stream: rc {}: {}".format(
+        proc.returncode, proc.stderr[-3000:]))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    counts, data = json.loads(lines[-1]), json.loads(lines[-2])
+    check(counts["rc"] == 0, "bench stream: rc {}".format(counts["rc"]))
+    bench_contract(data, "stream")
+    check(data["program"] == "stream", "bench stream: program")
+    check(counts["launches"] == counts["expected"] and counts["batches"] > 0,
+          "bench stream: {}".format(counts))
+    launches += counts["launches"]
+    batches += counts["batches"]
+    print("bench stream, NCCL world of one ({:.1f} s; {} power/peak launches "
+          "in {} batches; {}): {}".format(seconds, counts["launches"],
+                                          counts["batches"], card_name,
+                                          json.dumps(data)), flush=True)
+    print("bench phase: {} programs, {} power/peak launches in {} card "
+          "batches, {:.1f} s; {}".format(len(BENCH_RUNS) + 1, launches,
+                                        batches,
+                                        time.perf_counter() - t_phase,
+                                        card_name))
+    return {"bench": launches / batches}
+
+
 # The multi-rank stream phase: __graft_entry__.py's dryrun_multichip on
 # the card, through thrifty_tpu_torch.parallel.  A gloo world of 4 ranks
 # on an (rx=2, time=2) mesh, every rank computing on the one card (NCCL
@@ -2949,6 +3148,7 @@ def main(argv=None):
         serve_cli_phase(card_name, tmp)
         paths.update(template_extract_phase(card_name, tmp))
         paths.update(doctor_phase(card_name))
+        paths.update(bench_phase(card_name))
         paths.update(multirank_phase(card_name))
         timing_phase(card_name, tmp, cap, template, raw_path)
         program_timings(card_name, template)

@@ -1,9 +1,9 @@
 """Command dispatcher of the port: ``python -m thrifty_tpu_torch.cli <command>``.
 
-Mirrors ``thrifty_tpu.cli`` with every command but ``bench``, lazily
-importing each command module of the port.  The commands that build a
-detector or run the batched solver (``detect``, ``capture``, ``pos
---batched``, ``serve``, ``template_extract``, ``doctor``) take
+Mirrors ``thrifty_tpu.cli`` with all of its commands, lazily importing
+each command module of the port.  The commands that build a detector or
+run the batched solver (``detect``, ``capture``, ``pos --batched``,
+``serve``, ``template_extract``, ``doctor``, ``bench``) take
 ``--device`` (the card by default); the rest are numpy on the host,
 copies of the JAX package's modules.
 """
@@ -41,10 +41,10 @@ Utilities:
     gold              Generate Gold codes / print code stats
     scope             Live time/freq/histogram scope with triggers
     doctor            Check this node can run the full pipeline on its card
+    bench             Detector throughput benchmark (GPU)
 
 Use 'python -m thrifty_tpu_torch.cli help <command>' for a command's
-arguments.  'bench' still runs on the JAX package
-(python -m thrifty_tpu.cli bench)."""
+arguments."""
 
 COMMANDS = {
     "capture": "thrifty_tpu_torch.pipeline.capture",
@@ -64,6 +64,7 @@ COMMANDS = {
     "gold": "thrifty_tpu_torch.pipeline.gold_cli",
     "scope": "thrifty_tpu_torch.pipeline.scope",
     "doctor": "thrifty_tpu_torch.pipeline.doctor",
+    "bench": "thrifty_tpu_torch.pipeline.bench_cli",
 }
 
 

@@ -71,6 +71,16 @@ the port on the card:
   identify -> match -> tdoa -> pos against the same chain in one CPU
   process, and a world of 1 over NCCL; power/peak launches per rank and
   ms per rank call split into halo exchange, detect and gather;
+- the port's tool scripts (the tools phase), each in a child process as
+  a user runs it: ``scripts/validation_sweep_torch.py`` (20 trials, every
+  suite clean), ``card_golden_check_torch.py`` at ``--tol-scale 1``,
+  plain and gated, ``chip_rate_search_torch.py`` and
+  ``deploy/detect_torch.sh`` (a raw capture through its FIFO, stopped by
+  SIGTERM) side by side, then ``card_ab_time_torch.py --ab
+  fft_impl=matmul`` (its paired verdict) and ``scaling_sweep_torch.py``
+  (tiny 1x1, 1x2, 2x2 with gloo ranks sharing the card; full 1x1); a
+  ``sitecustomize`` hook reads every child's power/peak launches, held
+  to the batches it queued;
 - timings of the detect programs, the solver and the CLIs, each printed
   with the card's name and power limit.
 
@@ -3083,6 +3093,386 @@ def multirank_phase(card_name, device="cuda"):
     return {"stream (rank)": float(np.mean(launches["full"]))}
 
 
+# The tools phase: the port's counterparts of the JAX package's tool
+# scripts, each run as a user runs it, in a child process on the card.
+# Every child (and every process it spawns) gets this sitecustomize on
+# PYTHONPATH: it wraps BatchDetector._detect_batch as counted_batches()
+# does and, at exit, writes the process's power_peak.launches beside
+# expected_launches() of the batches it queued.
+COUNTING_HOOK = r'''
+import atexit, json, os, sys
+from importlib.machinery import PathFinder
+
+_SEEN = []
+
+
+class _CountBatches:
+    def find_spec(self, name, path=None, target=None):
+        if name != "thrifty_tpu_torch.dsp.detector":
+            return None
+        spec = PathFinder.find_spec(name, path)
+        load = spec.loader.exec_module
+
+        def exec_module(module):
+            load(module)
+            original = module.BatchDetector._detect_batch
+
+            def counted(self, blocks):
+                pending = original(self, blocks)
+                _SEEN.append((self, pending))
+                return pending
+
+            module.BatchDetector._detect_batch = counted
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+sys.meta_path.insert(0, _CountBatches())
+
+
+@atexit.register
+def _report():
+    pp = sys.modules.get("thrifty_tpu_torch.dsp.power_peak")
+    if pp is None:
+        return
+    sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
+    import chip_smoke
+    path = os.path.join(os.environ["CHIP_SMOKE_COUNTS"],
+                        "%d.json" % os.getpid())
+    with open(path + ".part", "w") as f:
+        json.dump({"launches": pp.launches,
+                   "expected": chip_smoke.expected_launches(_SEEN),
+                   "batches": sum(d.device.type == "cuda"
+                                  for d, _ in _SEEN),
+                   "overflows": sum(bool(p.overflowed) for _, p in _SEEN)},
+                  f)
+    os.replace(path + ".part", path)  # a reader sees whole files only
+'''
+TOOL_TIMEOUT_S = 300
+DEPLOY_BLOCKS = 64        # 4 batches of 16 through the supervisor's FIFO
+DEPLOY_BATCH = 16
+SWEEP_TRIALS = 20
+
+
+class Tool:
+    """One tool script run in a child process with the counting hook, in
+    a session of its own (so :meth:`stop` reaches every process it
+    starts); its output goes to files in the phase's directory."""
+
+    def __init__(self, name, argv, d, device, cwd=None, env=None):
+        self.name = name
+        self.dir = os.path.join(d, name)
+        self.counts = os.path.join(self.dir, "counts")
+        os.makedirs(self.counts)
+        self.env = dict(os.environ, CHIP_SMOKE_ROOT=ROOT,
+                        CHIP_SMOKE_COUNTS=self.counts,
+                        PYTHONPATH=os.path.join(d, "hook") + os.pathsep
+                        + ROOT, **(env or {}))
+        self.out = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            argv, cwd=cwd or self.dir, env=self.env, stdout=self.out,
+            stderr=self.err, start_new_session=True)
+        self.device = device
+
+    def stop(self):
+        """Kill whatever of the child's session still runs."""
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+    def finish(self, want_rc=0):
+        """Wait for the child; fail unless it exited ``want_rc`` and every
+        process of it that loaded the kernel's wrapper launched it exactly
+        as its batches predict.  Returns (stdout, seconds, launches,
+        card batches, overflows)."""
+        try:
+            rc = self.proc.wait(TOOL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = "timed out after {} s".format(TOOL_TIMEOUT_S)
+        self.stop()
+        seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        stdout, stderr = self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        check(rc == want_rc, "{}: rc {}: {}".format(self.name, rc,
+                                                    stderr[-3000:]))
+        launches, batches, overflows = self.read_counts()
+        return stdout, seconds, launches, batches, overflows
+
+    def read_counts(self):
+        counts = [json.load(open(os.path.join(self.counts, f)))
+                  for f in sorted(os.listdir(self.counts))
+                  if f.endswith(".json")]
+        for c in counts:
+            check(c["launches"] == c["expected"],
+                  "{}: {} power/peak launches in a process, want {} ({} card "
+                  "batches, {} overflows)".format(
+                      self.name, c["launches"], c["expected"], c["batches"],
+                      c["overflows"]))
+        total = [sum(c[k] for c in counts)
+                 for k in ("launches", "batches", "overflows")]
+        if self.device == "cuda" and self.name != "chip_rate_search":
+            check(total[0] > 0 and total[1] > 0,
+                  "{}: no power/peak launch on the card".format(self.name))
+        return total
+
+
+def tool_argv(script, *args):
+    return [sys.executable, os.path.join(ROOT, "scripts", script)] \
+        + list(args)
+
+
+def start_deploy(d, cap, device):
+    """deploy/detect_torch.sh in its own session (its `kill 0` must not
+    reach this process) on the first DEPLOY_BLOCKS blocks of the
+    full-size capture as a raw stream, then zero-signal bytes, as a live
+    radio keeps streaming: the reader fills 256 KiB chunks and a batch is
+    written once the next one is queued, so the tail covers a chunk and
+    two batches.  The feeder then idles."""
+    from thrifty_tpu_torch.dsp import iq
+
+    work = os.path.join(d, "deploy_run")
+    os.makedirs(work)
+    raw = os.path.join(work, "capture.raw")
+    tail = np.full((1 << 18) + 2 * DEPLOY_BATCH * 2 * NEW_LEN, 128,
+                   np.uint8)
+    np.concatenate([iq.iq_to_raw(cap.blocks[:DEPLOY_BLOCKS, 4920:]
+                                 .reshape(-1)), tail]).tofile(raw)
+    tpl = os.path.join(work, "template.npy")
+    np.save(tpl, cap.template)
+    cfg = os.path.join(work, "detector.cfg")
+    with open(cfg, "w") as f:
+        f.write("block_size: 16384\nblock_history: 4920\ncarrier_window: 7 "
+                "- 110\nbatch_size: {}\ntemplate: {}\n".format(
+                    DEPLOY_BATCH, tpl))
+    feed = os.path.join(work, "feed.sh")
+    with open(feed, "w") as f:
+        f.write("cat '{}'\nexec sleep 300\n".format(raw))
+    env = dict(CONFIG=cfg, OUTPUT=os.path.join(work, "rx.toad"),
+               FIFO=os.path.join(work, "capture.fifo"),
+               CAPTURE_CMD="/bin/sh " + feed, DEVICE=device,
+               PYTHON=sys.executable)
+    return Tool("detect_torch.sh",
+                ["/bin/bash", os.path.join(ROOT, "deploy", "detect_torch.sh")],
+                d, device, cwd=work, env=env)
+
+
+def finish_deploy(tool, cap, card_name):
+    """Wait until every planted burst of the streamed blocks is in the
+    .toad, SIGTERM the supervisor: it must stop within 20 s, remove its
+    FIFO, and its .toad hold the planted bursts within 0.05 samples."""
+    import signal
+    import types
+
+    planted = types.SimpleNamespace(bursts=[
+        b for b in cap.bursts if b.block_idx < DEPLOY_BLOCKS])
+    want = {b.block_idx for b in planted.bursts}
+
+    def toad_rows():
+        if not os.path.exists(tool.env["OUTPUT"]):
+            return np.zeros((0, 12))
+        with open(tool.env["OUTPUT"]) as f:
+            text = f.read()
+        text = text[:text.rfind("\n") + 1]  # whole lines only
+        return np.loadtxt(text.splitlines(), ndmin=2) if text.strip() \
+            else np.zeros((0, 12))
+
+    deadline = time.monotonic() + TOOL_TIMEOUT_S
+    while not want <= set(toad_rows()[:, 2].astype(int).tolist()):
+        if tool.proc.poll() is not None or time.monotonic() > deadline:
+            tool.stop()
+            tool.err.seek(0)
+            check(False, "detect_torch.sh: stopped or stalled before the "
+                  "planted bursts reached the .toad: " + tool.err.read())
+        time.sleep(0.2)
+    written = time.perf_counter() - tool.t0
+    os.kill(tool.proc.pid, signal.SIGTERM)
+    t_term = time.perf_counter()
+    try:
+        tool.proc.wait(20)
+    except subprocess.TimeoutExpired:
+        tool.stop()
+        check(False, "detect_torch.sh did not stop within 20 s of SIGTERM")
+    stop_s = time.perf_counter() - t_term
+    # detect drains its queued batch and writes its counts after the
+    # shell has gone (finish() then stops what is left of the session).
+    deadline = time.monotonic() + 30
+    while not any(f.endswith(".json") for f in os.listdir(tool.counts)) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    # 143 = 128 + SIGTERM: the interrupted `wait -n` under `set -e`.
+    _, _, launches, batches, _ = tool.finish(want_rc=143)
+    check(not os.path.exists(tool.env["FIFO"]), "detect_torch.sh: FIFO left")
+    rows = toad_rows()
+    check_bursts(rows, planted, "detect_torch.sh")
+    print("deploy/detect_torch.sh (DEVICE={}, CAPTURE_CMD = cat of a {}-block "
+          "raw stream, batch {}): the {} planted bursts in the .toad after "
+          "{:.1f} s, within 0.05 samples; stopped {:.2f} s after SIGTERM, "
+          "FIFO removed; {} power/peak launches in {} card batches; "
+          "{}".format(tool.env["DEVICE"], DEPLOY_BLOCKS, DEPLOY_BATCH,
+                      len(want), written, stop_s, launches, batches,
+                      card_name), flush=True)
+    return launches, batches
+
+
+def tools_phase(card_name, cap, device="cuda"):
+    """The port's tool scripts on the card, each in a child process, rc 0:
+    the validation sweep (20 trials, every suite clean), the golden check
+    at --tol-scale 1 plain and gated, the chip-rate search and the deploy
+    supervisor side by side; then, alone, the paired A/B timer and the
+    rank scaling sweep.  Each child's power/peak launches are held to its
+    batches.  ``device="cpu"`` rehearses it on the CPU."""
+    phase("tools")
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="tools_")
+    started = []
+
+    def launch(*args, **kwargs):
+        started.append(Tool(*args, **kwargs))
+        return started[-1]
+
+    try:
+        os.makedirs(os.path.join(d, "hook"))
+        with open(os.path.join(d, "hook", "sitecustomize.py"), "w") as f:
+            f.write(COUNTING_HOOK)
+        dev = ["--device", device]
+        tpl_gate = ["--detect-arg=--gate-capacity", "--detect-arg=8"]
+        # These four and the supervisor run side by side; their seconds
+        # run from the common start to each one's end.
+        side_by_side = [
+            launch("validation_sweep", tool_argv(
+                "validation_sweep_torch.py", "--trials", str(SWEEP_TRIALS),
+                "--seed", "0", *dev), d, device),
+            launch("card_golden_check", tool_argv(
+                "card_golden_check_torch.py", "--tol-scale", "1", *dev),
+                d, device),
+            launch("card_golden_check_gated", tool_argv(
+                "card_golden_check_torch.py", "--tol-scale", "1", *dev,
+                *tpl_gate), d, device),
+            launch("chip_rate_search", tool_argv(
+                "chip_rate_search_torch.py", os.path.join(INPUT,
+                                                          "rx0.card")),
+                d, device),
+        ]
+        deploy = start_deploy(d, cap, device)
+        started.append(deploy)
+        paths = {}
+
+        def record(name, launches, batches):
+            if device == "cuda":
+                paths[name] = launches / batches
+
+        out, seconds, launches, batches, overflows = \
+            side_by_side[0].finish()
+        suites = {s["suite"]: s for s in map(json.loads, (
+            ln for ln in out.splitlines() if ln.startswith("{")))}
+        check(sorted(suites) == ["detector", "matchmaker", "pos", "tdoa"]
+              and all(s["ok"] for s in suites.values())
+              and all(s.get("divergences", 0) == 0
+                      for s in suites.values())
+              and suites["pos"]["gn_worse_100m_wellposed"] == 0,
+              "validation sweep: {}".format(out))
+        det, pos = suites["detector"], suites["pos"]
+        print("validation_sweep_torch.py --device {} --trials {} --seed 0 "
+              "({:.1f} s): detector {} trials, {} blocks compared, 0 "
+              "divergences, worst SoA diff {:.3e} samples ({} off-bin "
+              "skipped, {} oracle failures); pos {} comparisons, "
+              "gn_worse_100m_wellposed {}, gn_better_100m {}, ambiguous {}; "
+              "matchmaker {} trials, tdoa {} comparisons, 0 divergences; "
+              "{} power/peak launches in {} card batches ({} overflows); "
+              "{}".format(device, SWEEP_TRIALS, seconds, det["trials"],
+                          det["blocks"], det["worst_soa_diff"],
+                          det["skipped_offbin"], det["oracle_failed"],
+                          pos["comparisons"], pos["gn_worse_100m_wellposed"],
+                          pos["gn_better_100m"],
+                          pos["equal_residual_ambiguous"],
+                          suites["matchmaker"]["trials"],
+                          suites["tdoa"]["comparisons"], launches, batches,
+                          overflows, card_name), flush=True)
+        record("validation_sweep", launches, batches)
+
+        for tool in side_by_side[1:3]:
+            out, seconds, launches, batches, overflows = tool.finish()
+            lines = [json.loads(ln) for ln in out.splitlines()
+                     if ln.startswith("{")]
+            check(lines[-1]["metric"] == "card_golden_check"
+                  and lines[-1]["value"] == 1.0
+                  and lines[-1]["backend"] == device,
+                  "{}: {}".format(tool.name, out))
+            worst = max(ln.get("max_err_in_cpu_tols", 0.0)
+                        for ln in lines[:-1])
+            print("card_golden_check_torch.py --tol-scale 1{} ({:.1f} s): "
+                  "pass; worst float column {:.3f} of its CPU tolerance, "
+                  "fixes within {} m of data.pos; {} power/peak launches in "
+                  "{} card batches ({} overflows); {}".format(
+                      " (gate 8)" if "gated" in tool.name else "", seconds,
+                      worst, lines[-2]["max_position_err_m"], launches,
+                      batches, overflows, card_name), flush=True)
+            record(tool.name, launches, batches)
+
+        out, seconds, _, _, _ = side_by_side[3].finish()
+        best = [ln for ln in out.splitlines()
+                if ln.startswith("best chip rate:")]
+        check(len(best) == 1, "chip_rate_search: " + out[-2000:])
+        print("chip_rate_search_torch.py rx0.card ({:.1f} s, host numpy, no "
+              "device): {}".format(seconds, best[0]), flush=True)
+
+        record("detect_torch.sh", *finish_deploy(deploy, cap, card_name))
+
+        ab = launch("card_ab_time", tool_argv(
+            "card_ab_time_torch.py", "--ab", "fft_impl=matmul", "--rounds",
+            "3", *dev), d, device)
+        out, seconds, launches, batches, _ = ab.finish()
+        data = json.loads([ln for ln in out.splitlines()
+                           if ln.startswith("{")][-1])
+        check(data["metric"] == "config_ab_time"
+              and data["verdict"] != "unresolved", "card_ab_time: " + out)
+        print("card_ab_time_torch.py --ab fft_impl=matmul --rounds 3 "
+              "({:.1f} s): verdict {}, paired ratio b/a {} (median), a "
+              "{:.3f} ms / b {:.3f} ms a batch (medians), rounds b/a {}; "
+              "{} power/peak launches in {} card batches; {}".format(
+                  seconds, data["verdict"], data["value"],
+                  1e3 * data["a_sec_per_batch_median"],
+                  1e3 * data["b_sec_per_batch_median"],
+                  [r["ratio_b_over_a"] for r in data["rounds"]], launches,
+                  batches, card_name), flush=True)
+        record("card_ab_time", launches, batches)
+
+        for geometry, shapes in (("tiny", "1x1,1x2,2x2"), ("full", "1x1")):
+            name = "scaling_sweep_" + geometry
+            sweep = launch(name, tool_argv(
+                "scaling_sweep_torch.py", "--geometry", geometry,
+                "--shapes", shapes, "--json", os.path.join(d, name + ".json"),
+                *dev), d, device)
+            _, seconds, launches, batches, _ = sweep.finish()
+            rows = json.load(open(os.path.join(d, name + ".json")))["results"]
+            check([r["mesh"] for r in rows] == shapes.split(",")
+                  and all(r["samples_per_s"] > 0 for r in rows),
+                  "{}: {}".format(name, rows))
+            print("scaling_sweep_torch.py --geometry {} --shapes {} ({:.1f} "
+                  "s; ranks share the one card): {}; {} power/peak launches "
+                  "in {} card batches; {}".format(
+                      geometry, shapes, seconds, json.dumps(rows), launches,
+                      batches, card_name), flush=True)
+            record(name, launches, batches)
+    finally:
+        for tool in started:
+            tool.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    print("tools phase: {} paths, {:.1f} s; {}".format(
+        len(paths), time.perf_counter() - t_phase, card_name), flush=True)
+    return paths
+
+
 def report_split(label, ranks, card_name):
     """Median ms per rank call of the timed run, split into halo exchange
     (host clock), detect (CUDA events), gather (host clock) and the whole
@@ -3150,6 +3540,7 @@ def main(argv=None):
         paths.update(doctor_phase(card_name))
         paths.update(bench_phase(card_name))
         paths.update(multirank_phase(card_name))
+        paths.update(tools_phase(card_name, cap))
         timing_phase(card_name, tmp, cap, template, raw_path)
         program_timings(card_name, template)
         kernel["paths"] = sorted(paths)

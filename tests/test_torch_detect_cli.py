@@ -406,7 +406,11 @@ def _jax_package_names(path):
     + ["chip_smoke.py", os.path.join("scripts", "profile_torch_detect.py"),
        os.path.join("scripts", "network_demo_torch.py"),
        os.path.join("scripts", "accuracy_sweep_torch.py"),
-       os.path.join("scripts", "tf32_drift_torch.py")]))
+       os.path.join("scripts", "tf32_drift_torch.py")]
+    + [os.path.join("scripts", name) for name in (
+        "validation_sweep_torch.py", "card_golden_check_torch.py",
+        "card_ab_time_torch.py", "scaling_sweep_torch.py",
+        "chip_rate_search_torch.py")]))
 def test_port_imports_only_host_modules(rel):
     """The port and its card scripts import nothing of the JAX package,
     not even its numpy host modules (the port keeps its own copies),

@@ -10,14 +10,21 @@ holds each kernel against its plain PyTorch version at the detect path's
 shapes and on the inputs each path of the port gives it (capture gate
 with and without a stddev term, integer sync, gated correlation and its
 overflow, device unfold, a template bank's [B*T, N] rows and the gated
-bank's [C*T, N] rows, both stats masks, the peak filter), then drives
-the port on the card:
+bank's [C*T, N] rows, both stats masks, the peak filter), holds the three
+fit kernels of ``csrc/fits.cu`` (the Dirichlet carrier fit, the autocorr
+fit, the maximise search) against their plain versions on the inputs of
+every detect program that selects them -- each program run once with
+every launch count set to 0, each fit one launch per stage call -- and
+on edge rows, and times them at the main path's shapes beside their
+bounds and the empty launch, then drives the port on the card:
 
 - ``detect`` on the committed golden captures against the reference
   ``.toad`` goldens, and on a full-size synthetic capture (block 16384,
   history 4920, batch 256, the 4914-sample golden template) against its
   ground truth and against the same CLI on the CPU -- the main path,
-  whose kernel launches the JSON line reports;
+  whose kernel launches the JSON line reports; then this slice's own
+  paths, ``detect --corr-interp autocorr`` and ``maximise`` at full
+  width, each counted from 0 (1 launch of the named fit per batch);
 - the transform family (``dsp/mxu_fft.py``): ``fft``, ``ifft``,
   ``ifft_head``, ``windowed_dft`` (the carrier window, W = 110, and a
   wrapped window) and ``fft_ramped`` as matmul and matmul3 at each
@@ -90,8 +97,9 @@ JAX package is imported: captures are written and synthesised with the
 port's own host modules (``io.card``, ``sim``, ``dsp.template``,
 ``pipeline.tdoa``), and the script checks ``sys.modules`` at its end.
 
-Output: lines for each phase, then a JSON line describing each kernel
-(with the paths that launched it and their launches per batch), the
+Output: lines for each phase, then a JSON line describing each kernel,
+power/peak and the three fits (with the paths that launched it and their
+launches per batch), the
 card's name and power limit as ``nvidia-smi`` reports them, and, as the
 last line, ``{"ok": true, "device": {...}}``.
 """
@@ -234,10 +242,13 @@ def source_label(path):
 
 
 def instance_name(mangled):
-    """power_peak_kernel<interleaved, stats, vec> from its mangled name."""
+    """power_peak_kernel<interleaved, stats, vec>, or a fit kernel's name,
+    from its mangled name."""
     flags = re.search(r"power_peak_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
     if not flags:
-        return mangled
+        fit = re.search(r"(dirichlet_fit_kernel|autocorr_fit_kernel|"
+                        r"maximise_kernel)", mangled)
+        return fit.group(1) if fit else mangled
     return "power_peak_kernel<{}>".format(", ".join(
         "{}={}".format(k, "true" if v == "1" else "false")
         for k, v in zip(("interleaved", "stats", "vec"), flags.groups())))
@@ -416,9 +427,8 @@ def load_power_peak(path):
     return lib
 
 
-def launch_floor(probe_path, card, scrub):
-    """CUDA-event times of the empty launch probe at power_peak's grids:
-    256 CTAs (one row each) and one row split over a cluster of 8."""
+def empty_launcher(probe_path):
+    """``run(ctas, cluster)``: one launch of the empty probe kernel."""
     import ctypes
 
     lib = ctypes.CDLL(probe_path)
@@ -431,6 +441,13 @@ def launch_floor(probe_path, card, scrub):
                            torch.cuda.current_stream().cuda_stream)
         check(err == 0, "empty kernel launch failed ({})".format(err))
 
+    return run
+
+
+def launch_floor(probe_path, card, scrub):
+    """CUDA-event times of the empty launch probe at power_peak's grids:
+    256 CTAs (one row each) and one row split over a cluster of 8."""
+    run = empty_launcher(probe_path)
     floors = {}
     for ctas, cluster in ((256, 1), (8, 8)):
         floors[ctas, cluster] = {
@@ -764,7 +781,6 @@ def full_size_phase(card_name, tmp, cap):
     phase("full-size slice")
     from thrifty_tpu_torch.io import card
     from thrifty_tpu_torch.dsp import iq
-    from thrifty_tpu_torch.dsp import power_peak as pp
 
     tpl_path = os.path.join(tmp, "template.npy")
     np.save(tpl_path, cap.template)
@@ -776,15 +792,16 @@ def full_size_phase(card_name, tmp, cap):
 
     gpu_out = os.path.join(tmp, "full_gpu.toad")
     args = [path, "-o", gpu_out] + common_args("cuda", tpl_path)
-    pp.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     detect(args)
     elapsed = time.perf_counter() - t0
-    launches = pp.launches
+    counts = launch_counts()
     batches = math.ceil(n_blocks / BATCH)
-    check(launches == 2 * batches, "{} kernel launches for {} batches"
-          .format(launches, batches))
+    check(counts == {"power_peak": 2 * batches, "dirichlet_fit": batches,
+                     "autocorr_fit": 0, "maximise": 0},
+          "{} kernel launches for {} batches".format(counts, batches))
 
     got = load_toad(gpu_out)
     by_block = {int(r[2]): r for r in got}
@@ -810,9 +827,9 @@ def full_size_phase(card_name, tmp, cap):
     detect([path, "-o", cpu_out] + common_args("cpu", tpl_path))
     cpu_s = time.perf_counter() - t0
     compare_toads(got, load_toad(cpu_out), "cuda vs cpu")
-    print("cuda and cpu runs agree on every detection (cpu took {:.2f} s)"
-          .format(cpu_s))
-    return launches
+    print("cuda and cpu runs agree on every detection (cpu took {:.2f} s); "
+          "launches {}".format(cpu_s, counts))
+    return counts
 
 
 # The .toad comparison of tests/test_golden_fastdet.py (goldens printed by
@@ -830,23 +847,46 @@ FIELD_COLS = {"corr_offset": 5, "corr_energy": 6, "corr_noise": 7,
 CORR_FIELDS = ("corr_sample", "corr_offset", "corr_energy", "corr_noise")
 
 
-def run_cli(command, args, blocks, per_batch):
-    """Run the port's CLI with the launch count set to 0 just before and
-    read just after; it must equal ``per_batch`` launches for each
-    batch of ``blocks`` blocks.  Returns (seconds, launches per batch)."""
+def launch_counts():
+    """Each kernel's launches, as its wrapper counts them."""
+    from thrifty_tpu_torch.dsp import dirichlet, power_peak, xcorr
+
+    return {"power_peak": power_peak.launches,
+            "dirichlet_fit": dirichlet.launches,
+            "autocorr_fit": xcorr.autocorr_launches,
+            "maximise": xcorr.maximise_launches}
+
+
+def reset_launch_counts():
+    from thrifty_tpu_torch.dsp import dirichlet, power_peak, xcorr
+
+    power_peak.launches = dirichlet.launches = 0
+    xcorr.autocorr_launches = xcorr.maximise_launches = 0
+
+
+def run_cli(command, args, blocks, per_batch, fits=None):
+    """Run the port's CLI with the launch counts set to 0 just before and
+    read just after; power_peak's must equal ``per_batch`` launches for
+    each batch of ``blocks`` blocks, and each fit kernel's its count in
+    ``fits`` ({kernel: launches per batch}).  Returns (seconds, power_peak
+    launches per batch)."""
     from thrifty_tpu_torch.cli import main
-    from thrifty_tpu_torch.dsp import power_peak as pp
 
     batches = math.ceil(blocks / BATCH)
     torch.cuda.synchronize()
-    pp.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     check(main([command] + args) == 0, "{} failed: {}".format(command, args))
     seconds = time.perf_counter() - t0
-    launches = pp.launches
+    counts = launch_counts()
+    launches = counts["power_peak"]
     check(launches == per_batch * batches,
           "{} {}: {} kernel launches for {} batches, expected {} each".format(
               command, args[:2], launches, batches, per_batch))
+    for name, want in (fits or {}).items():
+        check(counts[name] == want * batches,
+              "{} {}: {} {} launches for {} batches, expected {} each".format(
+                  command, args[:2], counts[name], name, batches, want))
     return seconds, launches / batches
 
 
@@ -956,6 +996,434 @@ def paths_phase(cap, template):
               "to plain".format(name, len(shapes), shapes, stats))
     print("sums max rel err {:.3g} (limit {:g})".format(worst_rel, SUM_RTOL))
     return worst_abs
+
+
+# -- the fit kernels (csrc/fits.cu) -------------------------------------------
+
+FITS = ("dirichlet_fit", "autocorr_fit", "maximise")
+FIT_SOURCE = "thrifty_tpu_torch/csrc/fits.cu"
+# The JAX loop each kernel replaces (no Pallas kernel: a compiled XLA loop).
+FIT_REPLACES = {"dirichlet_fit": "thrifty_tpu/dsp/dirichlet.py:141",
+                "autocorr_fit": "thrifty_tpu/dsp/xcorr.py:388",
+                "maximise": "thrifty_tpu/dsp/xcorr.py:279"}
+# Kernel against plain: the CPU tests' tolerances against JAX for the two
+# Gauss-Newton fits; for maximise the card selfcheck's (bench.py, 2e-3 for
+# maximise's corr_offset between two float32 programs): on a detected row
+# with a flat-topped peak a near-tie of its golden-section comparison turns
+# the order of a float32 sum into an offset ~1.6e-3 away (the plain version
+# on the CPU and on the card differ as much; the phase prints that spread
+# and the rows beyond 1e-3).
+FIT_TOLS = {"dirichlet_fit": 1e-5, "autocorr_fit": 1e-5, "maximise": 2e-3}
+MAXIMISE_TIGHT = 1e-3
+# The programs whose fit inputs are timed: the main path's shapes, gated
+# and bank rows.
+FIT_TIMED = ("detect", "autocorr", "autocorr_gated", "autocorr_bank",
+             "maximise", "maximise_gated", "maximise_bank")
+FLOAT32_PEAK = 67e12   # H100 SXM float32 outside the tensor cores
+# Float32 operations of each fit as csrc/fits.cu does them (sin, cos and
+# sincos not counted, so the bound is a lower one): per point and step and
+# per step of the two per-row fits; per element of the maximise rotation and
+# of each of its evaluations.
+DIRICHLET_FLOPS = (27, 16)
+AUTOCORR_FLOPS = (24, 16)
+MAXIMISE_FLOPS = (8, 11)
+
+
+def fit_work(name, args):
+    """(bytes, flops) one call of fit ``name`` on ``args`` needs: each
+    input read once, each output written once; the operations the
+    kernel does on these inputs."""
+    def iters(k, default):   # the wrappers' positional iters argument
+        return args[k] if len(args) > k else default
+
+    if name == "dirichlet_fit":
+        y = args[0]
+        rows, points = y.numel() // y.shape[-1], y.shape[-1]
+        per_point, per_step = DIRICHLET_FLOPS
+        return (rows * (points + 1) * 4,
+                rows * iters(3, 12) * (points * per_point + per_step))
+    if name == "autocorr_fit":
+        y, table = args[0], args[1]
+        rows, points = y.numel() // y.shape[-1], y.shape[-1]
+        per_point, per_step = AUTOCORR_FLOPS
+        return (rows * (points + 1) * 4 + 2 * table.numel() * 4,
+                rows * iters(4, 10) * (points * per_point + per_step))
+    spec, idx = args[0], args[1]
+    n = spec.shape[-1]
+    rows = spec.numel() // n
+    rotate, evaluate = MAXIMISE_FLOPS
+    return (rows * n * 8 + rows * (idx.element_size() + 4),
+            rows * n * (rotate + (2 + iters(3, 34)) * evaluate))
+
+
+def fit_bound(name, args):
+    nbytes, flops = fit_work(name, args)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FLOAT32_PEAK * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
+            else "operations", nbytes, flops)
+
+
+def fit_functions():
+    """{kernel: (wrapper, plain version)}, looked up when called."""
+    from thrifty_tpu_torch.dsp import dirichlet, xcorr
+
+    return {"dirichlet_fit": (dirichlet.dirichlet_fit,
+                              dirichlet.dirichlet_fit_reference),
+            "autocorr_fit": (xcorr.autocorr_fit,
+                             xcorr.autocorr_fit_reference),
+            "maximise": (xcorr.maximise_search, xcorr.maximise_reference)}
+
+
+def fit_held(name, args, what, rows=None):
+    """One fit kernel launch against its plain version on ``args``:
+    NaNs in the same places, offsets within FIT_TOLS on every row, or on
+    the rows of the bool mask ``rows`` (those whose offset the detector
+    reports).  Returns (the kernel's offsets as numpy, max abs err on
+    the held rows, max abs err on every row, held rows beyond
+    MAXIMISE_TIGHT)."""
+    kernel, plain = fit_functions()[name]
+    got = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == torch.float32,
+          "{}: {} {} vs plain {}".format(what, got.shape, got.dtype,
+                                          ref.shape))
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    nan = np.isnan(ref)
+    check(np.array_equal(nan, np.isnan(got)), "{}: NaNs differ".format(what))
+    diff = np.where(nan, 0.0, np.abs(got - ref)).reshape(-1)
+    held = diff if rows is None else np.where(rows.reshape(-1), diff, 0.0)
+    err = float(np.max(held, initial=0.0))
+    worst = int(np.argmax(held)) if held.size else 0
+    check(err <= FIT_TOLS[name], "{}: off by {:.3g} (limit {:g}) at row {}: "
+          "kernel {!r}, plain {!r}".format(
+              what, err, FIT_TOLS[name], worst, got.reshape(-1)[worst],
+              ref.reshape(-1)[worst]))
+    return (got, err, float(np.max(diff, initial=0.0)),
+            int(np.sum(held > MAXIMISE_TIGHT)))
+
+
+def plain_device_spread(args, rows):
+    """The maximise plain version on the CPU against the same on the card
+    (one code, two summation orders), on the rows of the bool mask
+    ``rows``: (max abs difference, rows beyond MAXIMISE_TIGHT)."""
+    from thrifty_tpu_torch.dsp import xcorr
+
+    card = xcorr.maximise_reference(*args).cpu().numpy()
+    cpu = xcorr.maximise_reference(*(a.cpu() if isinstance(
+        a, torch.Tensor) else a for a in args)).numpy()
+    diff = np.where(rows, np.abs(card - cpu), 0.0)
+    return float(diff.max()), int(np.sum(diff > MAXIMISE_TIGHT))
+
+
+def carrier_rows(rows, rng, points=7, block_len=16384, carrier_len=4914):
+    """[rows, points] float32 carrier magnitudes |A*D(x - delta)| with 2%
+    noise (the CPU tests' rows), then an all-zero row (a gate's filler),
+    a flat row and one-sided ramps that drive delta onto the +-1
+    clamp."""
+    half = points // 2
+    u = np.arange(-half, half + 1)[None, :] - rng.uniform(
+        -0.5, 0.5, (rows, 1))
+    a = np.pi / block_len
+    d = np.where(u == 0, 1.0, np.sin(a * carrier_len * u) / (
+        carrier_len * np.where(u == 0, 1.0, np.sin(a * u))))
+    amp = rng.uniform(10.0, 1000.0, (rows, 1))
+    y = np.abs(amp * np.abs(d) + rng.normal(scale=0.02, size=d.shape) * amp)
+    y[0], y[1] = 0.0, 5.0
+    y[2] = 3.0 ** np.arange(points)
+    y[3] = y[2][::-1]
+    return y.astype(np.float32)
+
+
+def noise_row_spread(dev):
+    """The Dirichlet fit on 64 noise-dominated rows (|N(0, 1)| plus a
+    one-bin peak, unlike a carrier's shape), where 12 Gauss-Newton steps
+    need not converge and amplify float32 rounding: the largest
+    |kernel - plain| on the card beside the largest |plain on the CPU -
+    plain on the card|.  Printed, not held to FIT_TOLS."""
+    from thrifty_tpu_torch.dsp import dirichlet
+
+    rng = np.random.default_rng(7)
+    y = np.abs(rng.normal(size=(64, 7))).astype(np.float32) + np.array(
+        [0, 1, 3, 9, 3, 1, 0], np.float32)
+    yd = torch.from_numpy(y).to(dev)
+    got = dirichlet.dirichlet_fit(yd, 16384, 4914).cpu().numpy()
+    ref = dirichlet.dirichlet_fit_reference(yd, 16384, 4914).cpu().numpy()
+    cpu = dirichlet.dirichlet_fit_reference(torch.from_numpy(y), 16384,
+                                            4914).numpy()
+    return float(np.max(np.abs(got - ref))), float(np.max(np.abs(cpu - ref)))
+
+
+def fit_edge_cases(dev, template):
+    """{kernel: [(label, args)]}: rows the detect path rarely gives --
+    all-zero rows (a gate's filler), flat rows, one-sided ramps that
+    drive an offset onto its clamp, ties (all-zero spectra: fc > fd
+    never holds), a non-power-of-two n, n = 65536 (the row does not fit
+    in shared memory: the scratch row), int64 peaks beyond n."""
+    from thrifty_tpu_torch.dsp import xcorr
+
+    rng = np.random.default_rng(7)
+    y = carrier_rows(64, rng)
+    cases = {"dirichlet_fit": [
+        ("edges [64, 7]", (torch.from_numpy(y).to(dev), 16384, 4914)),
+        ("edges [64, 5]", (torch.from_numpy(y[:, 1:6].copy()).to(dev),
+                           16384, 4914))]}
+    table, dtable = (torch.from_numpy(t).to(dev)
+                     for t in xcorr.autocorr_tables(template))
+    ya = np.abs(rng.normal(size=(64, 5))).astype(np.float32) + np.array(
+        [1, 3, 9, 3, 1], np.float32)
+    ya[:4] = y[:4, 1:6]
+    ya[4] = [0, 0, 0, 1, 1e3]        # far right: the offset clamps at clip
+    cases["autocorr_fit"] = [("edges [64, 5]", (
+        torch.from_numpy(ya).to(dev), table, dtable))]
+    cases["maximise"] = []
+    for n, rows, dtype in ((16384, 8, torch.int32), (6000, 8, torch.int64),
+                           (65536, 4, torch.int64)):
+        k = np.fft.fftfreq(n) * n
+        idx = np.linspace(0, n - 1, rows).astype(np.int64)
+        frac = rng.uniform(-0.5, 0.5, rows)
+        spec = (64 * np.exp(-2j * np.pi * k * (idx + frac)[:, None] / n)
+                + rng.normal(size=(rows, n))).astype(np.complex64)
+        spec[0] = 0.0
+        idx = idx + n * (np.arange(rows) - 1)   # wraps: -n .. beyond n
+        cases["maximise"].append(("edges [{}, {}] {}".format(
+            rows, n, str(dtype).split(".")[-1]), (
+                torch.from_numpy(spec).to(dev),
+                torch.from_numpy(idx).to(dev).to(dtype))))
+    return cases
+
+
+def fits_phase(card, cap, template, probe):
+    """The three fit kernels on each detect program that selects them:
+    each program runs one 256-block batch with the launch counts set to 0
+    just before and read just after (each fit must launch once per stage
+    call), the inputs each fit gets are captured and the kernel is held
+    against its plain version on them and on edge rows; then each kernel
+    is timed at the main path's shapes against its plain version and the
+    empty launch.  Returns {kernel: its JSON entry} (``launches`` is set
+    by the caller from the main path's runs)."""
+    phase("fit kernels vs plain")
+    from thrifty_tpu_torch.dsp import dirichlet, iq, xcorr
+    from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+
+    dev = torch.device("cuda")
+    rows = torch.from_numpy(iq.iq_to_raw(cap.blocks[:BATCH])).to(dev)
+    new = torch.from_numpy(iq.iq_to_raw(
+        cap.blocks[:BATCH, 4920:].reshape(-1))).to(dev)
+    bank = code_bank()
+    bank_rows = torch.from_numpy(iq.iq_to_raw(bank_capture(bank))).to(dev)
+
+    def run(tmpl=template, src=rows, stream=False, **kw):
+        det = BatchDetector(tmpl, DetectorConfig(
+            carrier_window=(7, 110), **kw), device=dev)
+        return lambda: (det.submit_raw_stream(src) if stream
+                        else det.submit_raw(src)).result()
+
+    n, half = 16384, BATCH // 2
+    d7 = [(BATCH, 7)]
+    # program: (run, {kernel: the input shape of each launch}).
+    programs = {
+        "detect": (run(), {"dirichlet_fit": d7}),
+        "detect_gated": (run(gate_capacity=half), {"dirichlet_fit": d7}),
+        "detect_gate_overflow": (run(gate_capacity=8),
+                                 {"dirichlet_fit": d7}),
+        "detect_device_unfold": (run(src=new, stream=True),
+                                 {"dirichlet_fit": d7}),
+        "detect_preshift": (run(sync_mode="preshift"),
+                            {"dirichlet_fit": d7}),
+        "detect_stats": (run(carrier_thresh=STDDEV_THRESH,
+                             corr_thresh=CORR_STDDEV_THRESH),
+                         {"dirichlet_fit": d7}),
+        "detect_peak_filter": (run(peak_filter_len=-1),
+                               {"dirichlet_fit": d7}),
+        "detect_matmul": (run(fft_impl="matmul"), {"dirichlet_fit": d7}),
+        "detect_integer": (run(sync_mode="integer"), {}),
+        "bank": (run(bank, bank_rows), {"dirichlet_fit": d7}),
+        "bank_preshift": (run(bank, bank_rows, sync_mode="preshift"),
+                          {"dirichlet_fit": d7}),
+        "autocorr": (run(corr_interp="autocorr"), {
+            "dirichlet_fit": d7, "autocorr_fit": [(BATCH, 5)]}),
+        "autocorr_gated": (run(corr_interp="autocorr", gate_capacity=half), {
+            "dirichlet_fit": d7, "autocorr_fit": [(half, 5)]}),
+        "autocorr_gate_overflow": (run(corr_interp="autocorr",
+                                       gate_capacity=8), {
+            "dirichlet_fit": d7, "autocorr_fit": [(8, 5), (BATCH, 5)]}),
+        "autocorr_bank": (run(bank, bank_rows, corr_interp="autocorr"), {
+            "dirichlet_fit": d7, "autocorr_fit": [(BATCH, 3, 5)]}),
+        "autocorr_integer": (run(corr_interp="autocorr",
+                                 sync_mode="integer"),
+                             {"autocorr_fit": [(BATCH, 5)]}),
+        "maximise": (run(corr_interp="maximise"), {
+            "dirichlet_fit": d7, "maximise": [(BATCH, n)]}),
+        "maximise_gated": (run(corr_interp="maximise", gate_capacity=half), {
+            "dirichlet_fit": d7, "maximise": [(half, n)]}),
+        "maximise_bank": (run(bank, bank_rows, corr_interp="maximise"), {
+            "dirichlet_fit": d7, "maximise": [(BATCH, 3, n)]}),
+    }
+    originals = {"dirichlet_fit": (dirichlet, "dirichlet_fit"),
+                 "autocorr_fit": (xcorr, "autocorr_fit"),
+                 "maximise": (xcorr, "maximise_search")}
+    captured = {name: [] for name in FITS}
+    # p_det of each correlation stage call: the rows whose offset the
+    # detector reports (_finish_outputs zeroes the others).
+    stage_detected = []
+    corr_stage = BatchDetector._corr_stage
+
+    def stage_spy(self, *args):
+        out = corr_stage(self, *args)
+        stage_detected.append(out[2].cpu().numpy())
+        return out
+
+    def spy(name, orig):
+        def wrapper(*args):
+            captured[name].append(tuple(a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args))
+            return orig(*args)
+        return wrapper
+
+    inputs = {name: [] for name in FITS}   # (label, args, rows) to hold
+    timed = {name: {} for name in FITS}    # input shape -> args to time
+    per_batch = {name: {} for name in FITS}
+    for program, (fn, want) in programs.items():
+        for v in captured.values():
+            v.clear()
+        stage_detected.clear()
+        saved = {k: getattr(mod, attr) for k, (mod, attr) in
+                 originals.items()}
+        for k, (mod, attr) in originals.items():
+            setattr(mod, attr, spy(k, saved[k]))
+        BatchDetector._corr_stage = stage_spy
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            for k, (mod, attr) in originals.items():
+                setattr(mod, attr, saved[k])
+            BatchDetector._corr_stage = corr_stage
+        for name in FITS:
+            shapes = [tuple(args[0].shape) for args in captured[name]]
+            expect = want.get(name, [])
+            check(shapes == expect and counts[name] == len(expect),
+                  "{}: {} launched {} times on {}, expected {}".format(
+                      program, name, counts[name], shapes, expect))
+            if expect:
+                per_batch[name][program] = counts[name]
+            for k, args in enumerate(captured[name]):
+                # maximise is held on the rows its stage call detects;
+                # each stage call launches it once.
+                rows = stage_detected[k] if name == "maximise" else None
+                inputs[name].append(("{} launch {} {}".format(
+                    program, k, shapes[k]), args, rows))
+                if program in FIT_TIMED:
+                    timed[name].setdefault(shapes[k], args)
+        print("{}: one {}-block batch, launches {}".format(program, BATCH,
+                                                           counts))
+
+    edges = fit_edge_cases(dev, template)
+    max_err = {}
+    for name in FITS:
+        errs, all_rows, beyond, held_rows = [], [], 0, 0
+        for label, args, rows in inputs[name] + [
+                (label, args, None) for label, args in edges[name]]:
+            got, err, err_all, n_beyond = fit_held(
+                name, args, "{} {}".format(name, label), rows)
+            errs.append(err)
+            all_rows.append(err_all)
+            beyond += n_beyond
+            held_rows += got.size if rows is None else int(rows.sum())
+            again = fit_functions()[name][0](*args).cpu().numpy()
+            check(np.array_equal(got, again, equal_nan=True),
+                  "{} {}: two launches differ".format(name, label))
+        max_err[name] = max(errs)
+        print("{}: kernel = plain within {:.3g} (limit {:g}) on {} held rows "
+              "of {} inputs from the programs above and {} edge cases, and "
+              "bit-equal between two launches".format(
+                  name, max_err[name], FIT_TOLS[name], held_rows,
+                  len(inputs[name]), len(edges[name])))
+        if name == "maximise":
+            label, args, rows = inputs[name][0]
+            spread, n_spread = plain_device_spread(args, rows)
+            print("maximise: {} held rows beyond {:g}; on every row, the "
+                  "undetected ones included (not held: the detector reports "
+                  "0 there), max |kernel - plain| {:.3g}; the plain version "
+                  "on the CPU against the card on {} ({} detected rows): "
+                  "max {:.3g}, {} rows beyond {:g}".format(
+                      beyond, MAXIMISE_TIGHT, max(all_rows), label,
+                      int(rows.sum()), spread, n_spread, MAXIMISE_TIGHT))
+
+    kernel_err, plain_err = noise_row_spread(dev)
+    print("dirichlet_fit on 64 noise-dominated rows (not held): max |kernel "
+          "- plain| {:.3g} on the card, max |plain on the CPU - plain on the "
+          "card| {:.3g}".format(kernel_err, plain_err))
+    empty = empty_launcher(probe)
+    scrub = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    entries = {}
+    for name in FITS:
+        kernel, plain = fit_functions()[name]
+        results = {}
+        for shape, args in sorted(timed[name].items()):
+            r = int(np.prod(shape[:-1]))
+            ctas = r if name == "maximise" else -(-r // 128)
+            t = {"kernel " + mode: median_ms(lambda: kernel(*args), mode,
+                                             scrub)
+                 for mode in ("cold", "warm", "call")}
+            t["plain cold"] = median_ms(lambda: plain(*args), "cold", scrub,
+                                        reps=5, warmup=2)
+            t["empty launch cold"] = median_ms(lambda: empty(ctas, 1),
+                                               "cold", scrub)
+            bound, by, nbytes, flops = fit_bound(name, args)
+            results[shape] = (t, bound, by)
+            print("{} {}: {}; bound {:.3g} ms by {} ({} bytes, {} float32 "
+                  "operations; sin/cos not counted); {} CTAs; library "
+                  "call: none; {}".format(
+                      name, list(shape), ", ".join(
+                          "{} {:.4f} ms".format(k, v) for k, v in t.items()),
+                      bound, by, nbytes, flops, ctas, card))
+        main = {"dirichlet_fit": (BATCH, 7), "autocorr_fit": (BATCH, 5),
+                "maximise": (BATCH, n)}[name]
+        t, bound, by = results[main]
+        entries[name] = {
+            "name": name, "route": "cuda", "source": FIT_SOURCE,
+            "replaces": FIT_REPLACES[name], "max_abs_err": max_err[name],
+            "ms": t["kernel cold"], "plain_ms": t["plain cold"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "floor_ms": t["empty launch cold"], "shape": list(main),
+            "launches_per_batch": per_batch[name]}
+    del scrub
+    return entries
+
+
+def fit_cli_phase(card_name, tmp, cap, tpl_path):
+    """This slice's own paths at full width: ``detect --corr-interp
+    autocorr`` and ``maximise`` on the 512-block capture through the CLI,
+    every count set to 0 just before and read just after: 2 power_peak,
+    1 Dirichlet and 1 of the named fit's launches per batch, every burst
+    within 0.05 samples.  Returns {kernel: (launches, per batch)}."""
+    phase("fit paths through the CLI")
+    n = len(cap.indices)
+    batches = math.ceil(n / BATCH)
+    card_path = os.path.join(tmp, "full.card")
+    out = {}
+    for interp, kernel in (("autocorr", "autocorr_fit"),
+                           ("maximise", "maximise")):
+        toad = os.path.join(tmp, "full_{}.toad".format(interp))
+        seconds, _ = run_cli("detect", [card_path, "-o", toad]
+                             + common_args("cuda", tpl_path)
+                             + ["--corr-interp", interp], n, 2,
+                             {"dirichlet_fit": 1, kernel: 1})
+        got = load_toad(toad)
+        check_bursts(got, cap, "--corr-interp " + interp)
+        out[kernel] = (batches, 1.0)
+        print("detect --corr-interp {}: {} detections, every burst within "
+              "0.05 samples; per batch 2 power_peak, 1 dirichlet_fit, 1 {} "
+              "launches ({} batches); CLI {:.4g} IQ samples/s; {}".format(
+                  interp, len(got), kernel, batches, n * NEW_LEN / seconds,
+                  card_name))
+    return out
 
 
 def fastdet_phase(tmp):
@@ -1291,15 +1759,25 @@ def interp_golden_phase(tmp):
               "--template", os.path.join(INPUT, "template.npy"),
               "--batch-size", str(BATCH), "--device", "cuda"]
     per_batch = {}
+    fit_paths = {}
     for name, (extra, spec) in INTERP_CASES.items():
         out = os.path.join(tmp, name + ".toad")
+        # Dirichlet unless a carrier interpolator is named; the
+        # correlation's fit when it is named.
+        fits = {"dirichlet_fit": int("--carrier-interp" not in extra),
+                "autocorr_fit": int(name == "corr_autocorr"),
+                "maximise": int(name == "corr_maximise")}
         _, per_batch["detect_" + name] = run_cli(
-            "detect", [src, "-o", out] + common + extra, blocks, 2)
+            "detect", [src, "-o", out] + common + extra, blocks, 2, fits)
+        for kernel, n in fits.items():
+            if n:
+                fit_paths.setdefault(kernel, {})["detect_" + name] = n
         err = compare_interp(load_toad(out), load_toad(os.path.join(
             INTERP, "rx0_{}.toad".format(name))), spec, name)
         print("{}: matches rx0_{}.toad (max |corr_offset - golden| "
-              "{:.2e}); 2 kernel launches per batch".format(name, name, err))
-    return per_batch
+              "{:.2e}); 2 power_peak launches per batch, fits {}".format(
+                  name, name, err, fits))
+    return per_batch, fit_paths
 
 
 # tests/test_code_division.py's network; its 0.02-0.36 s schedule is
@@ -1634,8 +2112,9 @@ def chain_phase(tmp):
 
 
 def program_timings(card_name, template):
-    """ms and device kernels per 256-block batch of the new detect
-    programs (CUDA events around 10 batches queued back to back)."""
+    """ms and device kernels per 256-block batch of every detect program
+    of PERF.md section 5 (CUDA events around 10 batches queued back to
+    back; the gated program's batches are queued, not resolved)."""
     phase("program timings")
     from thrifty_tpu_torch.dsp import iq
     from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
@@ -1646,6 +2125,8 @@ def program_timings(card_name, template):
     out = {}
     for name, tmpl, kw in (
             ("fractional", template, {}),
+            ("fractional_gated", template, dict(gate_capacity=BATCH // 2)),
+            ("integer", template, dict(sync_mode="integer")),
             ("bank", bank, {}),
             ("preshift", template, dict(sync_mode="preshift")),
             ("bank_preshift", bank, dict(sync_mode="preshift")),
@@ -3513,12 +3994,22 @@ def main(argv=None):
                               probe, built)
         kernel["max_abs_err"] = max(kernel["max_abs_err"],
                                     paths_phase(cap, template))
+        fits = fits_phase(card_name, cap, template, probe)
         golden_phase(tmp)
         # The main path: detect on a .card, launches counted from 0.
-        kernel["launches"] = full_size_phase(card_name, tmp, cap)
-        paths = {"detect": kernel["launches"] / math.ceil(
-            len(cap.indices) / BATCH)}
+        batches = math.ceil(len(cap.indices) / BATCH)
+        counts = full_size_phase(card_name, tmp, cap)
+        kernel["launches"] = counts["power_peak"]
+        fits["dirichlet_fit"]["launches"] = counts["dirichlet_fit"]
+        paths = {"detect": kernel["launches"] / batches}
+        fit_paths = {"dirichlet_fit": {"detect (CLI)": 1.0}}
         tpl_path = os.path.join(tmp, "template.npy")
+        # This slice's own paths, each counted from 0.
+        for name, (launches, per_batch) in fit_cli_phase(
+                card_name, tmp, cap, tpl_path).items():
+            fits[name]["launches"] = launches
+            fit_paths.setdefault(name, {})[
+                "detect --corr-interp (CLI)"] = per_batch
         transforms_phase(card_name)
         paths.update(transform_detect_phase(card_name, tmp, cap, tpl_path))
         raw_path = os.path.join(tmp, "full.raw")
@@ -3530,7 +4021,10 @@ def main(argv=None):
         paths.update(gate_phase(card_name, tmp, cap, template, raw_path,
                                 tpl_path))
         paths.update(options_phase(card_name, tmp, cap, tpl_path, raw_path))
-        paths.update(interp_golden_phase(tmp))
+        golden_paths, golden_fits = interp_golden_phase(tmp)
+        paths.update(golden_paths)
+        for name, per_batch in golden_fits.items():
+            fit_paths.setdefault(name, {}).update(per_batch)
         paths.update(code_division_phase())
         chain_phase(tmp)
         solver_phase(card_name)
@@ -3545,13 +4039,18 @@ def main(argv=None):
         program_timings(card_name, template)
         kernel["paths"] = sorted(paths)
         kernel["launches_per_batch"] = paths
+        for name, entry in fits.items():
+            entry["launches_per_batch"].update(fit_paths.get(name, {}))
+            entry["paths"] = sorted(entry["launches_per_batch"])
+            check(entry["launches"] > 0, "{}: no launch on its main path"
+                  .format(name))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                     ("jax", "jaxlib", "thrifty_tpu"))
     check(not loaded, "imported {}".format(loaded))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + [fits[k] for k in FITS]}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

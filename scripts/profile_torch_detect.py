@@ -3,11 +3,12 @@
 
     python scripts/profile_torch_detect.py [--blocks 512] [--seed 0]
         [--sync-mode fractional|integer] [--gate C]
+        [--corr-interp gaussian|autocorr|maximise|...]
 
 At the deployment geometry (block 16384, history 4920, batch 256, the
 committed 4914-sample golden template) on a synthetic capture, for the
-detect program of the chosen carrier sync and gate capacity (``--gate``;
-0 = off), it prints:
+detect program of the chosen carrier sync, gate capacity (``--gate``;
+0 = off) and correlation interpolator, it prints:
 
   A  device-resident ``submit_raw`` batches back to back: wall and
      enqueue ms per batch (host clock, one synchronise at the end);
@@ -39,7 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 from thrifty_tpu_torch import sim
 from thrifty_tpu_torch.cli import main as cli_main
 from thrifty_tpu_torch.device import resolve_device
-from thrifty_tpu_torch.dsp import carrier, dirichlet, power_peak, xcorr
+from thrifty_tpu_torch.dsp import carrier, dirichlet, power_peak
 from thrifty_tpu_torch.dsp import iq, mxu_fft
 from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
 from thrifty_tpu_torch.io import card
@@ -134,18 +135,22 @@ def stages(det, raw, card_name, reps=12, skip=2):
             det._corr_stage_gated(rows, c_det, det.config.gate_capacity)
             mark("gated correlation stage", marks)
             return marks
-        corr = det._remove_carrier_and_despread(src, c_idx, c_off)
+        corr, spec = det._remove_carrier_and_despread(src, c_idx, c_off)
         mark("carrier removal + despread + ifft", marks)
         p_idx, p_pow, _ = power_peak.fused_power_peak(
             corr, det._corr_mask_full)
         mark("power_peak corr", marks)
         p_mag = torch.sqrt(p_pow)
-        neigh = torch.abs(dirichlet.gather_neighborhood(
-            corr, p_idx, det._corr_offs))
-        xcorr.gaussian_interpolate(None, p_idx, clip=det.corr_clip,
-                                   values=neigh, length=det.corr_len)
+        name = det.config.corr_interp
+        if name == "maximise":
+            det._corr_interp(spec, p_idx)
+        elif name != "none":
+            neigh = torch.abs(dirichlet.gather_neighborhood(
+                corr, p_idx, det._corr_offs))
+            det._corr_interp(None, p_idx, values=neigh, length=det.corr_len)
+        mark(name + " interpolation", marks)
         det._corr_noise(det._signal_energy(blocks), p_mag, n)
-        mark("gaussian + noise + threshold", marks)
+        mark("noise + threshold", marks)
         return marks
 
     times = {}
@@ -198,6 +203,9 @@ def main(argv=None):
                         choices=["fractional", "integer"])
     parser.add_argument("--gate", type=int, default=0, metavar="C",
                         help="gate capacity (0 = off) [0]")
+    parser.add_argument("--corr-interp", default="gaussian",
+                        choices=["gaussian", "parabolic", "cosine",
+                                 "autocorr", "none", "maximise"])
     args = parser.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -210,9 +218,10 @@ def main(argv=None):
                             template=template, seed=args.seed)
     det = BatchDetector(template, DetectorConfig(
         carrier_window=(7, 110), sync_mode=args.sync_mode,
-        gate_capacity=args.gate), device=dev)
-    print("program: sync {}, gate capacity {}, batch {}; {}".format(
-        args.sync_mode, args.gate, BATCH, card_name))
+        gate_capacity=args.gate, corr_interp=args.corr_interp), device=dev)
+    print("program: sync {}, gate capacity {}, corr interp {}, batch {}; "
+          "{}".format(args.sync_mode, args.gate, args.corr_interp, BATCH,
+                      card_name))
     raw = torch.from_numpy(iq.iq_to_raw(cap.blocks[:BATCH])).to(dev)
     for _ in range(5):
         det.detect_raw(raw)
@@ -222,7 +231,8 @@ def main(argv=None):
     profiled(det, raw, card_name)
     stages(det, raw, card_name)
     through_cli(cap, card_name, ["--sync-mode", args.sync_mode,
-                                 "--gate-capacity", str(args.gate)])
+                                 "--gate-capacity", str(args.gate),
+                                 "--corr-interp", args.corr_interp])
     print("peak device memory {:.1f} MB; {}".format(
         torch.cuda.max_memory_allocated() / 1e6, card_name))
     return 0

@@ -5,9 +5,13 @@ The carrier is a finite-duration sinusoid, so its DFT magnitude around
 the peak follows |A * D(x - delta)| with D the Dirichlet kernel.  The
 reference fits (A, delta) per block with scipy's curve_fit
 (thrifty/carrier_sync.py:150-196); here the fit is a fixed number of
-damped Gauss-Newton steps with an analytic Jacobian, run on the whole
-batch at once: a handful of [B, width] element-wise ops and a
-closed-form 2x2 solve per step.
+damped Gauss-Newton steps with an analytic Jacobian and a closed-form
+2x2 solve per step, run on the whole batch at once:
+:func:`dirichlet_fit` launches ``csrc/fits.cu``'s kernel (one thread per
+row, every step in registers) for a CUDA tensor and takes the plain
+version :func:`dirichlet_fit_reference` (an eager loop of [B, width]
+element-wise ops) for a CPU tensor.  ``launches`` counts the kernel's
+launches.
 
 The other carrier interpolators (parabolic, gaussian, cosine, polyfit)
 are closed forms on the same gathered neighbourhood, and
@@ -61,46 +65,103 @@ def gather_neighborhood(values: torch.Tensor, peak_idx: torch.Tensor,
     return torch.gather(values, -1, idx)
 
 
+def dirichlet_fit_reference(y: torch.Tensor, block_len: int,
+                            carrier_len: int, iters: int = 12,
+                            damping: float = 1e-4) -> torch.Tensor:
+    """The plain PyTorch Dirichlet fit: ``iters`` damped Gauss-Newton
+    steps of |A*D(x - delta)| on ``y`` [..., P] (P odd, x = -P//2 ..
+    P//2) as an eager loop (the JAX package runs the same steps in
+    ``lax.scan``).  Returns delta [...]."""
+    half = y.shape[-1] // 2
+    xgrid = torch.arange(-half, half + 1, dtype=y.dtype, device=y.device)
+    amp = y[..., half]
+    delta = torch.zeros_like(amp)
+    for _ in range(iters):
+        u = xgrid - delta[..., None]
+        d = dirichlet_kernel(u, block_len, carrier_len)
+        absd = torch.abs(d)
+        resid = y - amp[..., None] * absd
+        # Jacobian of the model m = A*|D(x-delta)|:
+        #   dm/dA = |D|,  dm/ddelta = -A * sign(D) * D'(x-delta)
+        j_a = absd
+        j_d = -amp[..., None] * torch.sign(d) * dirichlet_kernel_deriv(
+            u, block_len, carrier_len)
+        # Damped normal equations, closed-form 2x2 solve per row.
+        a11 = torch.sum(j_a * j_a, dim=-1) * (1.0 + damping)
+        a22 = torch.sum(j_d * j_d, dim=-1) * (1.0 + damping) + 1e-20
+        a12 = torch.sum(j_a * j_d, dim=-1)
+        b1 = torch.sum(j_a * resid, dim=-1)
+        b2 = torch.sum(j_d * resid, dim=-1)
+        det = a11 * a22 - a12 * a12
+        det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+        step_a = (a22 * b1 - a12 * b2) / det
+        step_d = (a11 * b2 - a12 * b1) / det
+        # The true offset is sub-bin; clamp to keep iterates in-basin.
+        amp = amp + step_a
+        delta = torch.clamp(delta + step_d, -1.0, 1.0)
+    return delta
+
+
+# Kernel launches made by dirichlet_fit (CUDA tensors only).
+launches = 0
+
+
+def dirichlet_fit(y: torch.Tensor, block_len: int, carrier_len: int,
+                  iters: int = 12, damping: float = 1e-4) -> torch.Tensor:
+    """The Dirichlet fit of :func:`dirichlet_fit_reference`: on a CUDA
+    tensor one launch of ``csrc/fits.cu``'s ``dirichlet_fit_kernel``
+    (float32 [..., P] with P odd, else it raises), on a CPU tensor
+    the plain version; any other device raises."""
+    if y.device.type == "cpu":
+        return dirichlet_fit_reference(y, block_len, carrier_len, iters,
+                                       damping)
+    if y.device.type != "cuda":
+        raise ValueError("dirichlet_fit runs on 'cpu' or 'cuda' tensors, "
+                         "not {!r}".format(y.device.type))
+    return _launch(y, block_len, carrier_len, iters, damping)
+
+
+def _launch(y, block_len, carrier_len, iters, damping):
+    global launches
+    from thrifty_tpu_torch.dsp import fits_lib
+
+    p = y.shape[-1] if y.dim() else 0
+    if y.dtype != torch.float32 or p % 2 == 0:
+        raise ValueError("the Dirichlet fit kernel takes float32 [..., P] "
+                         "with P odd, got {} {}".format(y.dtype,
+                                                        tuple(y.shape)))
+    rows = y.reshape(-1, p).contiguous()
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=y.device)
+    # The plain version's Python scalars, each rounded once to float32.
+    a = np.pi / block_len
+    with fits_lib.on_device(y.device) as stream:
+        err = fits_lib.library().tt_dirichlet_fit(
+            rows.data_ptr(), out.data_ptr(), rows.shape[0], p, a,
+            a * carrier_len, carrier_len, a * a,
+            carrier_len * carrier_len - 1.0, iters, 1.0 + damping, stream)
+    fits_lib.check(err, "dirichlet_fit")
+    if rows.shape[0]:
+        launches += 1
+    return out.reshape(y.shape[:-1])
+
+
 def make_dirichlet_interpolator(block_len: int, carrier_len: int,
                                 width: int = 6, iters: int = 12,
                                 damping: float = 1e-4):
     """Build a batched sub-bin interpolator fitting |A*D(x-delta)|.
 
-    Returns ``interp(values[..., width+1]) -> delta [...]``: the
-    neighbourhood of ``width+1`` magnitudes centred on the peak goes in,
-    and ``iters`` damped Gauss-Newton steps (a Python loop; the JAX
-    package runs the same steps in ``lax.scan``) fit the offset.
+    Returns ``interp(values[..., P]) -> delta [...]`` with P = 2*(width
+    // 2) + 1: the neighbourhood of magnitudes centred on the peak goes
+    in, and :func:`dirichlet_fit` runs ``iters`` damped Gauss-Newton
+    steps (one kernel launch on the card).
     """
-    xs = np.arange(-(width // 2), width // 2 + 1).astype(np.float64)
+    points = 2 * (width // 2) + 1
 
     def interpolate(y: torch.Tensor) -> torch.Tensor:
-        xgrid = torch.as_tensor(xs, dtype=y.dtype, device=y.device)
-        amp = y[..., len(xs) // 2]
-        delta = torch.zeros_like(amp)
-        for _ in range(iters):
-            u = xgrid - delta[..., None]
-            d = dirichlet_kernel(u, block_len, carrier_len)
-            absd = torch.abs(d)
-            resid = y - amp[..., None] * absd
-            # Jacobian of the model m = A*|D(x-delta)|:
-            #   dm/dA = |D|,  dm/ddelta = -A * sign(D) * D'(x-delta)
-            j_a = absd
-            j_d = -amp[..., None] * torch.sign(d) * dirichlet_kernel_deriv(
-                u, block_len, carrier_len)
-            # Damped normal equations, closed-form 2x2 solve per row.
-            a11 = torch.sum(j_a * j_a, dim=-1) * (1.0 + damping)
-            a22 = torch.sum(j_d * j_d, dim=-1) * (1.0 + damping) + 1e-20
-            a12 = torch.sum(j_a * j_d, dim=-1)
-            b1 = torch.sum(j_a * resid, dim=-1)
-            b2 = torch.sum(j_d * resid, dim=-1)
-            det = a11 * a22 - a12 * a12
-            det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
-            step_a = (a22 * b1 - a12 * b2) / det
-            step_d = (a11 * b2 - a12 * b1) / det
-            # The true offset is sub-bin; clamp to keep iterates in-basin.
-            amp = amp + step_a
-            delta = torch.clamp(delta + step_d, -1.0, 1.0)
-        return delta
+        if y.shape[-1] != points:
+            raise ValueError("expected {} magnitudes per row (width {}), "
+                             "got {}".format(points, width, y.shape[-1]))
+        return dirichlet_fit(y, block_len, carrier_len, iters, damping)
 
     return interpolate
 

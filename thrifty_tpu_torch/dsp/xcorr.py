@@ -16,6 +16,13 @@ Every interpolator takes the neighbourhood form the detector uses:
 ``values`` [..., 2*half+1] magnitudes gathered around ``peak_idx`` and
 ``length`` (the number of unique lags) for the bounds check; the
 ``maximise`` interpolator reads the correlation spectrum instead.
+
+The two iterative interpolators, the autocorr fit and the maximise
+search, launch ``csrc/fits.cu``'s kernels for CUDA tensors
+(:func:`autocorr_fit`, :func:`maximise_search`: one launch per call,
+counted in ``autocorr_launches`` / ``maximise_launches``) and take their
+plain versions, the eager loops :func:`autocorr_fit_reference` and
+:func:`maximise_reference`, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -184,6 +191,98 @@ def none_interpolate(corr_mag, peak_idx, clip: float = 0.6, values=None,
                        device=peak_idx.device)
 
 
+# Kernel launches made by maximise_search and autocorr_fit (CUDA tensors
+# only).
+maximise_launches = 0
+autocorr_launches = 0
+
+INVPHI = float(np.float32((math.sqrt(5.0) - 1.0) / 2.0))
+
+
+def maximise_reference(spec, peak_idx, clip: float = 0.55,
+                       iters: int = 34):
+    """The plain PyTorch golden-section search (the eager loop): maximise
+    |corr(p + o)| over o in [-clip, clip] from the spectrum ``spec``
+    [..., N] complex64 around ``peak_idx`` [...]; 2 + ``iters``
+    [..., N] evaluations.  Returns the offset [...] float32."""
+    two_pi_i = 2j * math.pi
+    n = spec.shape[-1]
+    dev = spec.device
+    k = torch.arange(n, dtype=torch.int64, device=dev)
+    p = torch.remainder(peak_idx.to(torch.int64)[..., None], n)
+    kp = torch.remainder(k * p, n)
+    base = spec * torch.exp(two_pi_i * (kp.to(torch.float32) / n))
+    # Signed (fftfreq) frequencies for the fractional part, as the
+    # reference (xcorr_interpolators.py:102).
+    f_signed = torch.where(k < (n + 1) // 2, k, k - n).to(
+        torch.float32) / n
+
+    def value(o):
+        ph = torch.exp(two_pi_i * (o[..., None] * f_signed))
+        return torch.abs(torch.sum(base * ph, dim=-1))
+
+    a = torch.full(peak_idx.shape, -clip, dtype=torch.float32, device=dev)
+    b = torch.full(peak_idx.shape, clip, dtype=torch.float32, device=dev)
+    c = b - INVPHI * (b - a)
+    d = a + INVPHI * (b - a)
+    fc, fd = value(c), value(d)
+    for _ in range(iters):
+        left = fc > fd  # keep [a, d]; else keep [c, b]
+        a, b = torch.where(left, a, c), torch.where(left, d, b)
+        c = b - INVPHI * (b - a)
+        d = a + INVPHI * (b - a)
+        # One evaluation per step: the surviving interior point's
+        # value is reused, only its mirror is fresh.
+        fnew = value(torch.where(left, c, d))
+        fc, fd = torch.where(left, fnew, fd), torch.where(left, fc, fnew)
+    return 0.5 * (a + b)
+
+
+def maximise_search(spec, peak_idx, clip: float = 0.55, iters: int = 34):
+    """The search of :func:`maximise_reference`: on CUDA tensors one
+    launch of ``csrc/fits.cu``'s ``maximise_kernel`` (one CTA per row of
+    ``spec`` complex64, ``peak_idx`` int32 or int64 of the same leading
+    shape, else it raises), on CPU tensors the plain version; any other
+    device raises."""
+    if spec.device.type == "cpu":
+        return maximise_reference(spec, peak_idx, clip, iters)
+    if spec.device.type != "cuda":
+        raise ValueError("maximise_search runs on 'cpu' or 'cuda' tensors, "
+                         "not {!r}".format(spec.device.type))
+    return _launch_maximise(spec, peak_idx, clip, iters)
+
+
+def _launch_maximise(spec, peak_idx, clip, iters):
+    global maximise_launches
+    from thrifty_tpu_torch.dsp import fits_lib
+
+    if spec.dtype != torch.complex64 or spec.dim() < 1 \
+            or peak_idx.dtype not in (torch.int32, torch.int64) \
+            or tuple(peak_idx.shape) != tuple(spec.shape[:-1]) \
+            or peak_idx.device != spec.device:
+        raise ValueError(
+            "the maximise kernel takes complex64 spec [..., N] and int32 or "
+            "int64 peak_idx [...] on its device, got {} {} and {} {}".format(
+                spec.dtype, tuple(spec.shape), peak_idx.dtype,
+                tuple(peak_idx.shape)))
+    n = spec.shape[-1]
+    rows = spec.reshape(-1, n).contiguous()
+    idx = peak_idx.reshape(-1).contiguous()
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=spec.device)
+    lib = fits_lib.library()
+    with fits_lib.on_device(spec.device) as stream:
+        # A row that does not fit in shared memory takes a scratch row.
+        scratch = None if lib.tt_maximise_smem(n) else torch.empty_like(rows)
+        err = lib.tt_maximise(
+            rows.data_ptr(), idx.data_ptr(), idx.dtype == torch.int64,
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            rows.shape[0], n, clip, INVPHI, 2.0 * math.pi, iters, stream)
+    fits_lib.check(err, "maximise")
+    if rows.shape[0]:
+        maximise_launches += 1
+    return out.reshape(peak_idx.shape)
+
+
 def make_maximise_interpolator(clip: float = 0.55, iters: int = 34):
     """Band-limited correlation-peak maximisation (JAX
     ``make_maximise_interpolator``, a re-design of the reference's
@@ -193,48 +292,16 @@ def make_maximise_interpolator(clip: float = 0.55, iters: int = 34):
     corr(p + o) = (1/N) sum_k X_k e^{2 pi i k (p+o)/N} is evaluated from
     the correlation spectrum X and maximised over o in [-clip, clip]
     with ``iters`` golden-section steps, one [..., N] evaluation per
-    step.  The bracket is rounded to float32 at every step, as JAX
-    does, or it converges elsewhere.  ``(k*p) mod N`` is exact in int64
-    for any N (JAX needs uint32 wraparound and a power-of-two N).
+    step (:func:`maximise_search`: one kernel launch on the card).  The
+    bracket is rounded to float32 at every step, as JAX does, or it
+    converges elsewhere.  ``(k*p) mod N`` is exact in int64 for any N
+    (JAX needs uint32 wraparound and a power-of-two N).
 
     Returns ``interp(spec [..., N] complex64, peak_idx [...]) -> offset``.
     """
-    invphi = float(np.float32((math.sqrt(5.0) - 1.0) / 2.0))
-    two_pi_i = 2j * math.pi
 
     def interpolate(spec, peak_idx):
-        n = spec.shape[-1]
-        dev = spec.device
-        k = torch.arange(n, dtype=torch.int64, device=dev)
-        p = torch.remainder(peak_idx.to(torch.int64)[..., None], n)
-        kp = torch.remainder(k * p, n)
-        base = spec * torch.exp(two_pi_i * (kp.to(torch.float32) / n))
-        # Signed (fftfreq) frequencies for the fractional part, as the
-        # reference (xcorr_interpolators.py:102).
-        f_signed = torch.where(k < (n + 1) // 2, k, k - n).to(
-            torch.float32) / n
-
-        def value(o):
-            ph = torch.exp(two_pi_i * (o[..., None] * f_signed))
-            return torch.abs(torch.sum(base * ph, dim=-1))
-
-        a = torch.full(peak_idx.shape, -clip, dtype=torch.float32,
-                       device=dev)
-        b = torch.full(peak_idx.shape, clip, dtype=torch.float32,
-                       device=dev)
-        c = b - invphi * (b - a)
-        d = a + invphi * (b - a)
-        fc, fd = value(c), value(d)
-        for _ in range(iters):
-            left = fc > fd  # keep [a, d]; else keep [c, b]
-            a, b = torch.where(left, a, c), torch.where(left, d, b)
-            c = b - invphi * (b - a)
-            d = a + invphi * (b - a)
-            # One evaluation per step: the surviving interior point's
-            # value is reused, only its mirror is fresh.
-            fnew = value(torch.where(left, c, d))
-            fc, fd = torch.where(left, fnew, fd), torch.where(left, fc, fnew)
-        return 0.5 * (a + b)
+        return maximise_search(spec, peak_idx, clip, iters)
 
     return interpolate
 
@@ -277,23 +344,17 @@ def autocorr_tables(template, oversample: int = 16, width: int = 2):
     return table, dtable
 
 
-def make_autocorr_interpolator(table, dtable, oversample: int = 16,
-                               width: int = 2, iters: int = 10,
-                               clip: float = 0.6):
-    """Sub-sample interpolation by fitting the template's own
-    autocorrelation shape (tables of :func:`autocorr_tables`, tensors on
-    the detector's device) to the ``2*width+1``-point peak
-    neighbourhood: ``iters`` Gauss-Newton steps for amplitude and shift
-    (a Python loop; JAX runs them in ``lax.scan``).  With [T, M]
-    tables, ``values`` is [..., T, 2*width+1] and row t of the table
-    serves template t.
-
-    Returns ``interp(corr_mag, peak_idx, clip=, values=, length=)``
-    with the ``width`` attribute (the neighbourhood half-width).
-    """
+def autocorr_fit_reference(y, table, dtable, oversample: int = 16,
+                           iters: int = 10, clip: float = 0.6):
+    """The plain PyTorch autocorr fit (the eager loop): ``iters``
+    Gauss-Newton steps for amplitude and shift of the shape tables
+    ``table``/``dtable`` ([M], or [T, M] with ``y`` [..., T, K]: row t
+    serves template t) on ``y`` [..., K] float32 (K = 2*width+1), the
+    shift clamped to +-``clip``.  Returns the offset [...]."""
+    width = y.shape[-1] // 2
     num_entries = table.shape[-1]
     ks = torch.arange(-width, width + 1, dtype=torch.float32,
-                      device=table.device)
+                      device=y.device)
     t_idx = (torch.arange(table.shape[0], device=table.device)[:, None]
              if table.dim() == 2 else None)
 
@@ -310,29 +371,93 @@ def make_autocorr_interpolator(table, dtable, oversample: int = 16,
             v0, v1 = tbl[t_idx, i0], tbl[t_idx, i0 + 1]
         return v0 * (1 - frac) + v1 * frac
 
+    amp = y[..., width]
+    delta = torch.zeros_like(amp)
+    for _ in range(iters):
+        u = ks - delta[..., None]
+        r = lookup(table, u)
+        j_d = -amp[..., None] * lookup(dtable, u)
+        resid = y - amp[..., None] * r
+        a11 = torch.sum(r * r, dim=-1) * 1.0001
+        a22 = torch.sum(j_d * j_d, dim=-1) * 1.0001 + 1e-12
+        a12 = torch.sum(r * j_d, dim=-1)
+        b1 = torch.sum(r * resid, dim=-1)
+        b2 = torch.sum(j_d * resid, dim=-1)
+        det = a11 * a22 - a12 * a12
+        det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+        amp = amp + (a22 * b1 - a12 * b2) / det
+        delta = torch.clamp(delta + (a11 * b2 - a12 * b1) / det,
+                            -1.0, 1.0)
+    return torch.clamp(delta, -clip, clip)
+
+
+def autocorr_fit(y, table, dtable, oversample: int = 16, iters: int = 10,
+                 clip: float = 0.6):
+    """The fit of :func:`autocorr_fit_reference`: on CUDA tensors one
+    launch of ``csrc/fits.cu``'s ``autocorr_fit_kernel`` (float32 ``y``
+    [..., K] with K odd, float32 tables on its device, else it raises),
+    on CPU tensors the plain version; any other device raises."""
+    if y.device.type == "cpu":
+        return autocorr_fit_reference(y, table, dtable, oversample, iters,
+                                      clip)
+    if y.device.type != "cuda":
+        raise ValueError("autocorr_fit runs on 'cpu' or 'cuda' tensors, "
+                         "not {!r}".format(y.device.type))
+    return _launch_autocorr(y, table, dtable, oversample, iters, clip)
+
+
+def _launch_autocorr(y, table, dtable, oversample, iters, clip):
+    global autocorr_launches
+    from thrifty_tpu_torch.dsp import fits_lib
+
+    k = y.shape[-1] if y.dim() else 0
+    t_rows = table.shape[0] if table.dim() == 2 else 1
+    if y.dtype != torch.float32 or k % 2 == 0 \
+            or table.dtype != torch.float32 or table.dim() not in (1, 2) \
+            or dtable.shape != table.shape or dtable.dtype != torch.float32 \
+            or table.device != y.device or dtable.device != y.device \
+            or (table.dim() == 2 and (y.dim() < 2 or y.shape[-2] != t_rows)):
+        raise ValueError(
+            "the autocorr fit kernel takes float32 y [..., K] (K odd; [..., "
+            "T, K] for [T, M] tables) and float32 tables on its device, got "
+            "{} {} and {} {}".format(y.dtype, tuple(y.shape), table.dtype,
+                                     tuple(table.shape)))
+    rows = y.reshape(-1, k).contiguous()
+    tbl, dtbl = table.contiguous(), dtable.contiguous()
+    m = table.shape[-1]
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=y.device)
+    with fits_lib.on_device(y.device) as stream:
+        err = fits_lib.library().tt_autocorr_fit(
+            rows.data_ptr(), tbl.data_ptr(), dtbl.data_ptr(), out.data_ptr(),
+            rows.shape[0], k // 2, t_rows, m, oversample, m - 1.001, iters,
+            clip, stream)
+    fits_lib.check(err, "autocorr_fit")
+    if rows.shape[0]:
+        autocorr_launches += 1
+    return out.reshape(y.shape[:-1])
+
+
+def make_autocorr_interpolator(table, dtable, oversample: int = 16,
+                               width: int = 2, iters: int = 10,
+                               clip: float = 0.6):
+    """Sub-sample interpolation by fitting the template's own
+    autocorrelation shape (tables of :func:`autocorr_tables`, tensors on
+    the detector's device) to the ``2*width+1``-point peak
+    neighbourhood: ``iters`` Gauss-Newton steps for amplitude and shift
+    (:func:`autocorr_fit`: one kernel launch on the card; JAX runs them
+    in ``lax.scan``).  With [T, M] tables, ``values`` is [..., T,
+    2*width+1] and row t of the table serves template t.
+
+    Returns ``interp(corr_mag, peak_idx, clip=, values=, length=)``
+    with the ``width`` attribute (the neighbourhood half-width).
+    """
+
     def interpolate(corr_mag, peak_idx, clip=clip, values=None,
                     length=None):
         y, in_bounds = _gather_neighborhood(corr_mag, peak_idx, width,
                                             values, length)
-        y = y.to(torch.float32)
-        amp = y[..., width]
-        delta = torch.zeros_like(amp)
-        for _ in range(iters):
-            u = ks - delta[..., None]
-            r = lookup(table, u)
-            j_d = -amp[..., None] * lookup(dtable, u)
-            resid = y - amp[..., None] * r
-            a11 = torch.sum(r * r, dim=-1) * 1.0001
-            a22 = torch.sum(j_d * j_d, dim=-1) * 1.0001 + 1e-12
-            a12 = torch.sum(r * j_d, dim=-1)
-            b1 = torch.sum(r * resid, dim=-1)
-            b2 = torch.sum(j_d * resid, dim=-1)
-            det = a11 * a22 - a12 * a12
-            det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
-            amp = amp + (a22 * b1 - a12 * b2) / det
-            delta = torch.clamp(delta + (a11 * b2 - a12 * b1) / det,
-                                -1.0, 1.0)
-        offset = torch.clamp(delta, -clip, clip)
+        offset = autocorr_fit(y.to(torch.float32), table, dtable,
+                              oversample, iters, clip)
         return torch.where(in_bounds, offset, 0.0)
 
     interpolate.width = width

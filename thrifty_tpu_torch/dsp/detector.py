@@ -518,6 +518,15 @@ class BatchDetector:
         return PendingBatch(self._finish_outputs(
             *carrier_out, *self._corr_stage(*rows)))
 
+    def corr_rows(self, rows, overflowed=False):
+        """The rows the correlation runs on in a batch of ``rows``
+        blocks: all of them ungated; under the gate its capacity, and
+        the whole batch again after an overflow."""
+        cap = self.config.gate_capacity
+        if not cap or cap >= rows:
+            return rows
+        return cap + rows if overflowed else cap
+
     def _check_kernel_program(self, batch):
         """What JAX's kernel program (``use_pallas='on'``) refuses, worded
         as its error (thrifty_tpu/dsp/detector.py:414-436)."""

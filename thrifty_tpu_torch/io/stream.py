@@ -18,6 +18,8 @@ import time as time_mod
 
 import numpy as np
 
+from thrifty_tpu_torch import spans
+
 
 def prefetch_iter(iterator, depth=2):
     """Run an iterator in a background thread with a bounded queue.
@@ -223,44 +225,51 @@ class StreamPump:
                 for _ in range(BUF_POOL)]
         batch_no = 0
         while True:
-            if fused:
-                buf = pool[batch_no % BUF_POOL]
-                n_blocks, got = self._ring.read_unfold(
-                    buf, self._hist_bytes)
-                short = got < want
-                raw = buf[:n_blocks]
-            else:
-                data = self._ring.read(
-                    want, out=scratch[self._hist_bytes:])
-                n_blocks = len(data) // self._new_bytes
-                short = len(data) < want
-            # Flush-then-raise: a reader failure closes the ring, but
-            # whatever it already buffered is good data -- drain and
-            # yield it before surfacing the error, so a dying live
-            # stream loses nothing that reached the host.
-            if n_blocks == 0:
-                if self._reader_error is not None:
-                    raise self._reader_error
-                break
-            stamp = self._timestamper()
-            if fused:
-                raw[0, : self._hist_bytes] = tail
-                # Explicit start offset: `[-self._hist_bytes:]` with
-                # history 0 would select the WHOLE row and break the
-                # next batch's splice.
-                tail = raw[-1, self._block_bytes - self._hist_bytes:] \
-                    .copy()
-            else:
-                raw = pool[batch_no % BUF_POOL][:n_blocks]
-                np.copyto(raw, as_strided(
-                    scratch, shape=(n_blocks, self._block_bytes),
-                    strides=(self._new_bytes, 1)))
-                # Carry the stream tail for the next batch's history.
-                valid = self._hist_bytes + n_blocks * self._new_bytes
-                scratch[: self._hist_bytes] = \
-                    scratch[valid - self._hist_bytes: valid].copy()
-            batch_no += 1
-            ts, idx = self._stamps(block_idx, n_blocks, stamp)
+            with spans.span("ingest.read", block_idx) as read:
+                wait0 = self.read_wait_ns if spans.enabled() else 0
+                if fused:
+                    buf = pool[batch_no % BUF_POOL]
+                    n_blocks, got = self._ring.read_unfold(
+                        buf, self._hist_bytes)
+                    short = got < want
+                    raw = buf[:n_blocks]
+                else:
+                    data = self._ring.read(
+                        want, out=scratch[self._hist_bytes:])
+                    n_blocks = len(data) // self._new_bytes
+                    short = len(data) < want
+                # Flush-then-raise: a reader failure closes the ring,
+                # but whatever it already buffered is good data --
+                # drain and yield it before surfacing the error, so a
+                # dying live stream loses nothing that reached the
+                # host.
+                if n_blocks == 0:
+                    read.drop()
+                    if self._reader_error is not None:
+                        raise self._reader_error
+                    break
+                stamp = self._timestamper()
+                if fused:
+                    raw[0, : self._hist_bytes] = tail
+                    # Explicit start offset: `[-self._hist_bytes:]` with
+                    # history 0 would select the WHOLE row and break the
+                    # next batch's splice.
+                    tail = raw[-1, self._block_bytes - self._hist_bytes:] \
+                        .copy()
+                else:
+                    raw = pool[batch_no % BUF_POOL][:n_blocks]
+                    np.copyto(raw, as_strided(
+                        scratch, shape=(n_blocks, self._block_bytes),
+                        strides=(self._new_bytes, 1)))
+                    # Carry the stream tail for the next batch's history.
+                    valid = self._hist_bytes + n_blocks * self._new_bytes
+                    scratch[: self._hist_bytes] = \
+                        scratch[valid - self._hist_bytes: valid].copy()
+                batch_no += 1
+                ts, idx = self._stamps(block_idx, n_blocks, stamp)
+                if spans.enabled():
+                    spans.count(block_idx,
+                                ring_wait_ns=self.read_wait_ns - wait0)
             block_idx += n_blocks
             yield ts, idx, raw
             if short:
@@ -305,9 +314,11 @@ class StreamPump:
             n_total = (len(base) - start) // self._new_bytes
             b0 = 0
             while b0 < n_total:
-                n = min(self._batch_size, n_total - b0)
-                off = start + b0 * self._new_bytes
-                ts, idx = stamps(b0, n, self._timestamper())
+                with spans.span("ingest.read", b0):
+                    n = min(self._batch_size, n_total - b0)
+                    off = start + b0 * self._new_bytes
+                    ts, idx = stamps(b0, n, self._timestamper())
+                    spans.count(b0, ring_wait_ns=0)
                 yield ts, idx, base[off:off + n * self._new_bytes]
                 b0 += n
             return
@@ -318,15 +329,22 @@ class StreamPump:
         block_idx = 0
         batch_no = 0
         while True:
-            data = self._ring.read(want, out=pool[batch_no % BUF_POOL])
-            n = len(data) // self._new_bytes
-            short = len(data) < want
-            # Flush-then-raise, as in batches().
-            if n == 0:
-                if self._reader_error is not None:
-                    raise self._reader_error
-                break
-            ts, idx = stamps(block_idx, n, self._timestamper())
+            with spans.span("ingest.read", block_idx) as read:
+                wait0 = self.read_wait_ns if spans.enabled() else 0
+                data = self._ring.read(want,
+                                       out=pool[batch_no % BUF_POOL])
+                n = len(data) // self._new_bytes
+                short = len(data) < want
+                # Flush-then-raise, as in batches().
+                if n == 0:
+                    read.drop()
+                    if self._reader_error is not None:
+                        raise self._reader_error
+                    break
+                ts, idx = stamps(block_idx, n, self._timestamper())
+                if spans.enabled():
+                    spans.count(block_idx,
+                                ring_wait_ns=self.read_wait_ns - wait0)
             block_idx += n
             batch_no += 1
             yield ts, idx, data[:n * self._new_bytes]
@@ -349,45 +367,48 @@ class StreamPump:
         b0 = 0
         batch_no = 0
         while b0 < n_total:
-            n = min(self._batch_size, n_total - b0)
-            out = pool[batch_no % BUF_POOL][:n]
-            off = start + b0 * self._new_bytes
-            stamp = self._timestamper()
-            if b0 == 0:
-                # First batch: row 0's history precedes the stream;
-                # unfold 128-fills it (same as the ring path's initial
-                # tail), rows 1+ take history from the stream.
-                self._native.unfold(
-                    base[off:off + n * self._new_bytes],
-                    self._block_bytes, self._hist_bytes, n, out=out)
-            else:
-                pre = self._hist_bytes - b0 * self._new_bytes
-                if pre > 0:
-                    # The earliest rows' history still reaches before
-                    # the STREAM start (history > one batch's advance):
-                    # assemble 128-padding + stream bytes once and
-                    # gather rows out of that.  Indexing
-                    # base[off - hist:] here would wrap negative
-                    # offsets to the file tail (or, with start > 0,
-                    # read pre-stream file bytes the ring path treats
-                    # as 128s).
-                    span = np.empty(
-                        self._hist_bytes + n * self._new_bytes,
-                        dtype=np.uint8)
-                    span[:pre] = 128
-                    span[pre:] = base[
-                        start:start + (b0 + n) * self._new_bytes]
-                    self._native.copy_rows(span, 0, out,
-                                           self._new_bytes)
+            with spans.span("ingest.read", b0):
+                n = min(self._batch_size, n_total - b0)
+                out = pool[batch_no % BUF_POOL][:n]
+                off = start + b0 * self._new_bytes
+                stamp = self._timestamper()
+                if b0 == 0:
+                    # First batch: row 0's history precedes the stream;
+                    # unfold 128-fills it (same as the ring path's
+                    # initial tail), rows 1+ take history from the
+                    # stream.
+                    self._native.unfold(
+                        base[off:off + n * self._new_bytes],
+                        self._block_bytes, self._hist_bytes, n, out=out)
                 else:
-                    # Every row's bytes exist in the stream -- a
-                    # thread-parallel strided row gather, nothing
-                    # else (one memcpy stream is bound by a single
-                    # core's copy bandwidth).
-                    self._native.copy_rows(
-                        base, off - self._hist_bytes, out,
-                        self._new_bytes)
-            ts, idx = self._stamps(b0, n, stamp)
+                    pre = self._hist_bytes - b0 * self._new_bytes
+                    if pre > 0:
+                        # The earliest rows' history still reaches
+                        # before the STREAM start (history > one
+                        # batch's advance): assemble 128-padding +
+                        # stream bytes once and gather rows out of
+                        # that.  Indexing base[off - hist:] here would
+                        # wrap negative offsets to the file tail (or,
+                        # with start > 0, read pre-stream file bytes
+                        # the ring path treats as 128s).
+                        span = np.empty(
+                            self._hist_bytes + n * self._new_bytes,
+                            dtype=np.uint8)
+                        span[:pre] = 128
+                        span[pre:] = base[
+                            start:start + (b0 + n) * self._new_bytes]
+                        self._native.copy_rows(span, 0, out,
+                                               self._new_bytes)
+                    else:
+                        # Every row's bytes exist in the stream -- a
+                        # thread-parallel strided row gather, nothing
+                        # else (one memcpy stream is bound by a single
+                        # core's copy bandwidth).
+                        self._native.copy_rows(
+                            base, off - self._hist_bytes, out,
+                            self._new_bytes)
+                ts, idx = self._stamps(b0, n, stamp)
+                spans.count(b0, ring_wait_ns=0)
             yield ts, idx, out
             b0 += n
             batch_no += 1
@@ -422,6 +443,12 @@ class StreamPump:
     def overflows(self) -> int:
         """Times the producer stalled on a full ring (backpressure)."""
         return 0 if self._ring is None else self._ring.overflows
+
+    @property
+    def read_wait_ns(self) -> int:
+        """Nanoseconds the consumer has spent waiting for the ring to
+        deliver a batch (0 without a ring)."""
+        return 0 if self._ring is None else self._ring.read_wait_ns
 
     def occupancy_histogram(self) -> np.ndarray:
         """8-bucket ring-occupancy histogram sampled at each write."""

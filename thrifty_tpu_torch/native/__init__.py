@@ -119,6 +119,8 @@ def _load():
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
     lib.ttpu_ring_overflows.restype = ctypes.c_uint64
     lib.ttpu_ring_overflows.argtypes = [ctypes.c_void_p]
+    lib.ttpu_ring_read_wait_ns.restype = ctypes.c_uint64
+    lib.ttpu_ring_read_wait_ns.argtypes = [ctypes.c_void_p]
     lib.ttpu_ring_histogram.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
@@ -428,6 +430,12 @@ class RingBuffer:
     @property
     def overflows(self) -> int:
         return int(_lib.ttpu_ring_overflows(self._ring))
+
+    @property
+    def read_wait_ns(self) -> int:
+        """Nanoseconds the consumer has spent blocked waiting for data
+        in :meth:`read` and :meth:`read_unfold`."""
+        return int(_lib.ttpu_ring_read_wait_ns(self._ring))
 
     def histogram(self) -> np.ndarray:
         out = np.zeros(8, dtype=np.uint64)

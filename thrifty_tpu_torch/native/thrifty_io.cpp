@@ -13,6 +13,7 @@
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 dependency).
 
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -524,7 +525,7 @@ void ttpu_copy_rows(const uint8_t* src, uint8_t* out, int64_t row_bytes,
 
 // ---------------------------------------------------------------------------
 // Ring buffer (cf. fastcard/circbuf.c): producer/consumer with
-// occupancy histogram and overflow counter.
+// occupancy histogram, overflow counter and the consumer's wait time.
 // ---------------------------------------------------------------------------
 
 struct ttpu_ring {
@@ -534,8 +535,15 @@ struct ttpu_ring {
     std::condition_variable can_read, can_write;
     bool closed = false;
     uint64_t overflows = 0;
+    uint64_t read_wait_ns = 0;  // consumer blocked for data
     uint64_t histogram[8] = {0};
 };
+
+// Nanoseconds since t0 on the steady clock.
+static uint64_t ns_since(std::chrono::steady_clock::time_point t0) {
+    return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+               std::chrono::steady_clock::now() - t0).count();
+}
 
 void* ttpu_ring_new(int64_t capacity) {
     auto* r = new ttpu_ring();
@@ -634,8 +642,10 @@ int64_t ttpu_ring_read(void* ring, uint8_t* out, int64_t len) {
     while (got < len) {
         if (r->size == 0) {
             if (r->closed) break;
+            auto t0 = std::chrono::steady_clock::now();
             r->can_read.wait(lock,
                              [&] { return r->size > 0 || r->closed; });
+            r->read_wait_ns += ns_since(t0);
             if (r->size == 0 && r->closed) break;
         }
         size_t n = std::min((size_t)(len - got), r->size);
@@ -677,10 +687,13 @@ int64_t ttpu_ring_read_unfold(void* ring, uint8_t* out,
     int64_t m;
     {
         std::unique_lock<std::mutex> lock(r->mu);
-        while ((int64_t)r->size < want && !r->closed)
+        if ((int64_t)r->size < want && !r->closed) {
+            auto t0 = std::chrono::steady_clock::now();
             r->can_read.wait(lock,
                              [&] { return (int64_t)r->size >= want ||
                                           r->closed; });
+            r->read_wait_ns += ns_since(t0);
+        }
         m = std::min((int64_t)r->size, want);
         tail_snap = r->tail;
     }
@@ -739,6 +752,12 @@ uint64_t ttpu_ring_overflows(void* ring) {
     auto* r = (ttpu_ring*)ring;
     std::lock_guard<std::mutex> lock(r->mu);
     return r->overflows;
+}
+
+uint64_t ttpu_ring_read_wait_ns(void* ring) {
+    auto* r = (ttpu_ring*)ring;
+    std::lock_guard<std::mutex> lock(r->mu);
+    return r->read_wait_ns;
 }
 
 void ttpu_ring_histogram(void* ring, uint64_t* out8) {

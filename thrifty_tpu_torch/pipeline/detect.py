@@ -33,7 +33,9 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
+from thrifty_tpu_torch import spans
 from thrifty_tpu_torch.config import settings as settings_mod
 from thrifty_tpu_torch.config.parsers import normalize_freq_range
 from thrifty_tpu_torch.device import DEVICES, resolve_device
@@ -81,6 +83,33 @@ class SummaryFormatter:
         return line
 
 
+def spans_line(records):
+    """The at-exit report's line on the recorded batches: the mean ms a
+    batch of each span, the ring's wait and the carrier-positive rows."""
+    if not records:
+        return "spans: no batch recorded"
+
+    def mean(values):
+        return sum(values) / len(values)
+
+    parts = []
+    for name in spans.SPANS:
+        took = [r["spans"][name] for r in records if name in r["spans"]]
+        if took:
+            parts.append("{} {:.3f}".format(
+                name, mean([b - a for a, b in took]) * 1e-6))
+    counts = [r["counts"] for r in records]
+    line = "spans over {} batches, mean ms a batch: {}".format(
+        len(records), ", ".join(parts))
+    waits = [c["ring_wait_ns"] for c in counts if "ring_wait_ns" in c]
+    if waits:
+        line += "; ring_wait_ns {:.0f} a batch".format(mean(waits))
+    carrier = [c["carrier_rows"] for c in counts if "carrier_rows" in c]
+    if carrier:
+        line += "; carrier rows {:.2f} a batch".format(mean(carrier))
+    return line
+
+
 def detect_batches(detector, batches, batch_size, rxid=-1,
                    summary=None, summary_out=None,
                    txid_from_template=False, card_out=None,
@@ -103,33 +132,76 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
     batch is drained (its :class:`PendingBatch` resolved, which re-runs
     an overflowed gated batch in full, and its outputs copied back) only
     after the next one has been queued.
+
+    While :mod:`thrifty_tpu_torch.spans` records, each batch (id
+    ``int(idx[0])``) gets the spans ``upload``, ``submit``,
+    ``drain.wait``, ``drain.copy`` and ``drain.records`` and the counts
+    ``rows``, ``carrier_rows`` and ``corr_rows``; on a CUDA device a
+    CUDA event recorded after the batch's launches is waited for in
+    ``drain.wait``, so that the wait for the device leaves the copies.
     """
     if device_unfold and card_out is not None:
         raise ValueError("card_out needs host-side overlap-save rows; "
                          "incompatible with device_unfold")
     upload = PinnedUpload(detector.device)
-    pending = []  # [(ts, idx, n_valid, raw, PendingBatch)]
+    device = torch.device(detector.device)
+    # [(ts, idx, n_valid, raw, PendingBatch, event or None)]
+    pending = []
+    # Two CUDA events used in turn (at most two batches are pending), so
+    # that none is created or destroyed outside the spans.
+    events = []
+
+    def mark():
+        """A CUDA event after the work queued so far, while spans are
+        recorded on a CUDA device."""
+        if device.type != "cuda" or not spans.enabled():
+            return None
+        if not events:
+            events.extend(torch.cuda.Event() for _ in range(2))
+        events.reverse()
+        events[0].record(torch.cuda.current_stream(device))
+        return events[0]
 
     def drain(entry):
-        ts, idx, n, raw, batch = entry
-        out = {k: v.cpu().numpy()[:n] for k, v in batch.result().items()}
-        soa = detector.soa(idx, out["corr_sample"], out["corr_offset"])
-        if summary is not None and summary_out is not None:
-            for i in range(n):
-                print(summary(int(idx[i]), out, i), file=summary_out)
-        if card_out is not None and np.any(out["detected"]):
-            keep = out["detected"]
-            card.write_card(card_out, ts[keep], idx[keep], raw[:n][keep])
-            card_out.flush()
-        return toad.from_detector_output(
-            ts, idx, soa, out, rxid=rxid,
-            txid_from_template=txid_from_template)
+        ts, idx, n, raw, batch, done = entry
+        bid = int(idx[0])
+        recording = spans.enabled()
+        with spans.span("drain.wait", bid):
+            overflows = detector.gate_overflows if recording else 0
+            result = batch.result()
+            redone = recording and detector.gate_overflows != overflows
+            if done is not None:
+                if redone:  # the re-run's launches follow the event
+                    done.record(torch.cuda.current_stream(device))
+                done.synchronize()
+        with spans.span("drain.copy", bid):
+            out = {k: v.cpu().numpy()[:n] for k, v in result.items()}
+        with spans.span("drain.records", bid):
+            soa = detector.soa(idx, out["corr_sample"], out["corr_offset"])
+            if summary is not None and summary_out is not None:
+                for i in range(n):
+                    print(summary(int(idx[i]), out, i), file=summary_out)
+            if card_out is not None and np.any(out["detected"]):
+                keep = out["detected"]
+                card.write_card(card_out, ts[keep], idx[keep],
+                                raw[:n][keep])
+                card_out.flush()
+            records = toad.from_detector_output(
+                ts, idx, soa, out, rxid=rxid,
+                txid_from_template=txid_from_template)
+        if recording:
+            spans.count(
+                bid, rows=n,
+                carrier_rows=int(np.count_nonzero(out["carrier_detect"])),
+                corr_rows=detector.corr_rows(max(n, batch_size), redone))
+        return records
 
     try:
         for ts, idx, raw in batches:
             n = len(ts)
             if n == 0:  # a batch can be all-junk rows
                 continue
+            bid = int(idx[0])
             if device_unfold:
                 if n < batch_size:
                     raw = np.concatenate(
@@ -137,7 +209,10 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
                                       * detector.new_len, 128, np.uint8)])
                 # Contiguous new bytes only (no repeated history); the
                 # unfold runs on the device.
-                batch = detector.submit_raw_stream(upload(raw))
+                new_raw = upload(raw, batch=bid)
+                with spans.span("submit", bid):
+                    batch = detector.submit_raw_stream(new_raw)
+                    done = mark()
             else:
                 if n < batch_size:
                     raw = np.concatenate(
@@ -145,8 +220,11 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
                                       np.uint8)])
                 # Upload raw uint8 (2 B/sample); conversion runs on
                 # device.
-                batch = detector.submit_raw(upload(raw))
-            pending.append((ts, idx, n, raw, batch))
+                rows = upload(raw, batch=bid)
+                with spans.span("submit", bid):
+                    batch = detector.submit_raw(rows)
+                    done = mark()
+            pending.append((ts, idx, n, raw, batch, done))
             # Keep one batch in flight: overlap host decode with device
             # work.
             if len(pending) > 1:
@@ -416,6 +494,8 @@ def _main(argv=None):
         batches = skipped(batches)
 
     exit_code = 0
+    if not args.quiet:
+        spans.enable()  # read by the at-exit report's spans line
     t_start = time_mod.perf_counter()
     try:
         for records in detect_batches(
@@ -434,6 +514,8 @@ def _main(argv=None):
               file=sys.stderr)
         exit_code = 1
     finally:
+        kept = spans.batches()
+        spans.disable()
         if close_out:
             out_stream.close()
         if card_out is not None:
@@ -455,6 +537,7 @@ def _main(argv=None):
                                 args.gate_capacity), file=info_out)
         if pump is not None:
             print(pump.stats_line(), file=info_out)
+        print(spans_line(kept), file=info_out)
         if hasattr(in_stream, "stats_line"):
             # USB ring occupancy/overflow report (rtlsdr_reader.c:310-325).
             print(in_stream.stats_line(), file=info_out)

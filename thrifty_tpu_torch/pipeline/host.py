@@ -8,6 +8,8 @@ import sys
 import numpy as np
 import torch
 
+from thrifty_tpu_torch import spans
+
 
 def open_source(args, config, path):
     """The raw input stream a CLI asked for: a live rtl_tcp or USB
@@ -50,16 +52,20 @@ class PinnedUpload:
         self._pinned = [None, None]
         self._turn = 0
 
-    def __call__(self, array: np.ndarray) -> torch.Tensor:
-        array = np.ascontiguousarray(array, dtype=np.uint8)
-        if self.device.type != "cuda":
-            if not array.flags.writeable:
-                array = array.copy()
-            return torch.from_numpy(array)
-        k = self._turn
-        self._turn ^= 1
-        if self._pinned[k] is None or self._pinned[k].shape != array.shape:
-            self._pinned[k] = torch.empty(array.shape, dtype=torch.uint8,
-                                          pin_memory=True)
-        self._pinned[k].numpy()[...] = array
-        return self._pinned[k].to(self.device, non_blocking=True)
+    def __call__(self, array: np.ndarray, batch=None) -> torch.Tensor:
+        """The batch on the device; ``batch``: the id its ``upload``
+        span is recorded under (see :mod:`thrifty_tpu_torch.spans`)."""
+        with spans.span("upload", batch):
+            array = np.ascontiguousarray(array, dtype=np.uint8)
+            if self.device.type != "cuda":
+                if not array.flags.writeable:
+                    array = array.copy()
+                return torch.from_numpy(array)
+            k = self._turn
+            self._turn ^= 1
+            if self._pinned[k] is None \
+                    or self._pinned[k].shape != array.shape:
+                self._pinned[k] = torch.empty(
+                    array.shape, dtype=torch.uint8, pin_memory=True)
+            self._pinned[k].numpy()[...] = array
+            return self._pinned[k].to(self.device, non_blocking=True)

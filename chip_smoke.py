@@ -22,9 +22,13 @@ bounds and the empty launch, then drives the port on the card:
   ``.toad`` goldens, and on a full-size synthetic capture (block 16384,
   history 4920, batch 256, the 4914-sample golden template) against its
   ground truth and against the same CLI on the CPU -- the main path,
-  whose kernel launches the JSON line reports; then this slice's own
+  whose kernel runs the JSON line reports; then this slice's own
   paths, ``detect --corr-interp autocorr`` and ``maximise`` at full
-  width, each counted from 0 (1 launch of the named fit per batch);
+  width (1 run of the named fit per batch).  A CLI run's kernels are
+  counted by name in a device trace (``device_kernels()``), where a
+  CUDA graph's replay runs them too; elsewhere the kernels' launch
+  counters, which count their launchers' calls, are held to the
+  program runs (``_detect_batch``: eager or captured) that called them;
 - the transform family (``dsp/mxu_fft.py``): ``fft``, ``ifft``,
   ``ifft_head``, ``windowed_dft`` (the carrier window, W = 110, and a
   wrapped window) and ``fft_ramped`` as matmul and matmul3 at each
@@ -758,23 +762,22 @@ def common_args(device, template_path, rxid=0):
 def golden_phase(tmp):
     phase("golden slice")
     from thrifty_tpu_torch.io import card
-    from thrifty_tpu_torch.dsp import power_peak as pp
 
     tpl_path = os.path.join(INPUT, "template.npy")
     for rxid in (0, 1, 2):
         src = os.path.join(INPUT, "rx{}.card".format(rxid))
         out = os.path.join(tmp, "rx{}.toad".format(rxid))
         batches = math.ceil(len(card.read_card(src)[0]) / BATCH)
-        pp.launches = 0
-        detect([src, "-o", out] + common_args("cuda", tpl_path, rxid))
-        check(pp.launches == 2 * batches,
-              "rx{}: {} kernel launches for {} batches".format(
-                  rxid, pp.launches, batches))
+        with device_kernels() as ran:
+            detect([src, "-o", out] + common_args("cuda", tpl_path, rxid))
+        check(ran["power_peak"] == 2 * batches,
+              "rx{}: {} kernel runs for {} batches".format(
+                  rxid, ran["power_peak"], batches))
         got = load_toad(out)
         compare_toads(got, load_toad(os.path.join(
             GOLDEN, "rx{}.toad".format(rxid))), "rx{}".format(rxid))
         print("rx{}: {} detections match the reference golden; {} kernel "
-              "launches".format(rxid, len(got), pp.launches))
+              "runs".format(rxid, len(got), ran["power_peak"]))
 
 
 def full_size_phase(card_name, tmp, cap):
@@ -792,16 +795,14 @@ def full_size_phase(card_name, tmp, cap):
 
     gpu_out = os.path.join(tmp, "full_gpu.toad")
     args = [path, "-o", gpu_out] + common_args("cuda", tpl_path)
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    detect(args)
-    elapsed = time.perf_counter() - t0
-    counts = launch_counts()
+    with device_kernels() as counts:
+        t0 = time.perf_counter()
+        detect(args)
+        elapsed = time.perf_counter() - t0
     batches = math.ceil(n_blocks / BATCH)
     check(counts == {"power_peak": 2 * batches, "dirichlet_fit": batches,
                      "autocorr_fit": 0, "maximise": 0},
-          "{} kernel launches for {} batches".format(counts, batches))
+          "{} kernel runs for {} batches".format(counts, batches))
 
     got = load_toad(gpu_out)
     by_block = {int(r[2]): r for r in got}
@@ -828,7 +829,7 @@ def full_size_phase(card_name, tmp, cap):
     cpu_s = time.perf_counter() - t0
     compare_toads(got, load_toad(cpu_out), "cuda vs cpu")
     print("cuda and cpu runs agree on every detection (cpu took {:.2f} s); "
-          "launches {}".format(cpu_s, counts))
+          "kernel runs {}".format(cpu_s, counts))
     return counts
 
 
@@ -864,21 +865,54 @@ def reset_launch_counts():
     xcorr.autocorr_launches = xcorr.maximise_launches = 0
 
 
-def run_cli(command, args, blocks, per_batch, fits=None):
-    """Run the port's CLI with the launch counts set to 0 just before and
-    read just after; power_peak's must equal ``per_batch`` launches for
+# Each kernel of launch_counts() by its name in a device trace.
+KERNEL_NAMES = {"power_peak": "power_peak_kernel",
+                "dirichlet_fit": "dirichlet_fit_kernel",
+                "autocorr_fit": "autocorr_fit_kernel",
+                "maximise": "maximise_kernel"}
+
+
+@contextlib.contextmanager
+def device_kernels():
+    """Each hand-written kernel's runs on the card while the block runs,
+    counted by name in a torch.profiler trace of the device.  The launch
+    counters count the calls of the kernels' launchers, so a CUDA
+    graph's replay, which runs the kernels its capture recorded, is
+    seen only here.  Yields the dict of launch_counts()'s keys, filled
+    when the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for key, name in KERNEL_NAMES.items():
+                counts[key] += name in e.name
+
+
+def run_cli(command, args, blocks, per_batch, fits=None, traced=True):
+    """Run the port's CLI with the kernels' runs on the card counted
+    (device_kernels()); power_peak's must equal ``per_batch`` runs for
     each batch of ``blocks`` blocks, and each fit kernel's its count in
-    ``fits`` ({kernel: launches per batch}).  Returns (seconds, power_peak
-    launches per batch)."""
+    ``fits`` ({kernel: runs per batch}).  ``traced`` False, for a run
+    that is timed, counts the launchers' calls instead (launch_counts()
+    from 0), which is the runs where the CLI replays no CUDA graph.
+    Returns (seconds, power_peak runs per batch)."""
     from thrifty_tpu_torch.cli import main
 
     batches = math.ceil(blocks / BATCH)
     torch.cuda.synchronize()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    check(main([command] + args) == 0, "{} failed: {}".format(command, args))
-    seconds = time.perf_counter() - t0
-    counts = launch_counts()
+    with device_kernels() if traced else contextlib.nullcontext() as ran:
+        t0 = time.perf_counter()
+        check(main([command] + args) == 0,
+              "{} failed: {}".format(command, args))
+        seconds = time.perf_counter() - t0
+    counts = ran if traced else launch_counts()
     launches = counts["power_peak"]
     check(launches == per_batch * batches,
           "{} {}: {} kernel launches for {} batches, expected {} each".format(
@@ -1652,11 +1686,14 @@ def timing_phase(card_name, tmp, cap, template, raw_path):
               float(np.median(reads)), max(reads), card_name))
     n = len(cap.indices)
     rates = []
+    # Timed without a profiler; `capture` replays no CUDA graph.  (Under
+    # device_kernels() at this point of the script the profiler held
+    # none of its kernels, where a fresh process holds them all.)
     for _ in range(2):
         seconds, _ = run_cli("capture", [
             "--raw-in", raw_path, "-o", os.path.join(tmp, "cap.card"),
             "--quiet", "--carrier-window", "7-110", "--batch-size",
-            str(BATCH), "--device", "cuda"], n, 1)
+            str(BATCH), "--device", "cuda"], n, 1, traced=False)
         rates.append(n * NEW_LEN / seconds)
     print("capture --raw-in CLI: {} IQ samples/s ({} blocks); {}".format(
         "/".join("{:.4g}".format(r) for r in rates), n, card_name))

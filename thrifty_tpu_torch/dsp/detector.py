@@ -55,10 +55,22 @@ whose argmax runs as torch ops over [B, W]; the correlation still
 launches the kernel: one launch per batch.  ``use_pallas='off'`` (the
 plain reductions) is for a CPU detector only: on a CUDA device the
 kernel is the only reduction, and the detector refuses 'off'.
+
+On a CUDA device an ungated ``submit_raw`` runs the program as one
+CUDA graph (:func:`graph_step`, :class:`_GraphedProgram`): the first
+batch of each raw shape runs eagerly, the second is captured, and it
+and every later batch of that shape replay the capture, the same
+kernels in the same order on the same plans, so the outputs are the
+eager program's bit for bit.  ``graph_captures`` and ``graph_replays``
+count both.  The kernels' launch counters count the calls of their
+launchers, so they advance on an eager batch and on a capture, and not
+on a replay.  ``submit``, ``submit_raw_stream``, a gated program and a
+CPU detector run eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
@@ -179,6 +191,103 @@ def _validate(config: DetectorConfig, template: np.ndarray):
         raise ValueError("history_len must be >= template_len - 1")
 
 
+def gated(gate_capacity, rows):
+    """Does the carrier gate apply to a batch of ``rows`` blocks (a
+    capacity that is set and below the batch)?"""
+    return bool(gate_capacity) and gate_capacity < rows
+
+
+def graph_step(device_type, gate_capacity, shape, graphs):
+    """How ``submit_raw`` runs a raw batch of ``shape`` ([B, 2N]):
+    'eager' (op by op, never graphed), 'first' (op by op, the shape's
+    first batch), 'capture' (a shape seen before and not yet captured:
+    captured as a CUDA graph, then replayed) or 'replay' (the shape's
+    graph).  A shape that comes once is never captured.
+
+    Only an ungated program on a CUDA device is graphed: a gated
+    batch's :class:`PendingBatch` re-reads the batch's intermediates
+    when it overflows.  ``graphs``: shape -> its graph, or None where
+    the shape has run once.
+    """
+    if device_type != "cuda" or gated(gate_capacity, shape[0]):
+        return "eager"
+    shape = tuple(shape)
+    if shape not in graphs:
+        return "first"
+    return "capture" if graphs[shape] is None else "replay"
+
+
+def pack_outputs(out):
+    """(one uint8 tensor holding the bytes of every tensor of the dict
+    ``out``, its layout for :func:`unpack_outputs`).  The widest dtype
+    goes first, so that each field's offset is a multiple of its
+    element size."""
+    fields = sorted(out.items(), key=lambda kv: -kv[1].element_size())
+    parts = [t.contiguous().reshape(-1).view(torch.uint8)
+             for _, t in fields]
+    return torch.cat(parts), ([(key, t.dtype, t.shape) for key, t in fields],
+                              [part.numel() for part in parts], list(out))
+
+
+def unpack_outputs(packed, layout):
+    """The dict of :func:`pack_outputs`, as views of ``packed``, in the
+    packed dict's key order (one split and a view a field: this runs on
+    every replay)."""
+    fields, sizes, keys = layout
+    views = {}
+    for (key, dtype, shape), part in zip(fields, packed.split(sizes)):
+        view = part.view(dtype)
+        views[key] = view if view.shape == shape else view.view(shape)
+    return {key: views[key] for key in keys}
+
+
+def _capture_failed(err):
+    return RuntimeError("capturing the detect program as a CUDA graph "
+                        "failed: {}".format(err))
+
+
+class _GraphedProgram:
+    """A program ``raw uint8 [B, 2N] -> output dict`` captured as a CUDA
+    graph against the static input ``raw``, in the graph's own memory
+    pool.
+
+    Build it with a side stream current (a capture cannot run on the
+    default stream), after an eager run of the program at this shape
+    has made its cuFFT plans, loaded its kernels and uploaded its
+    constants.  The capture launches nothing; the kernels' launchers
+    are called once, as they record their launches into the graph.
+    The graph ends by packing the output fields into one byte buffer
+    (:func:`pack_outputs`).  A replay copies the batch into
+    the static input, replays and clones the packed buffer, all on the
+    current stream: each batch's outputs are views of its own clone, so
+    any number of batches may be in flight.
+    """
+
+    def __init__(self, program, raw):
+        self.input = raw
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a CUDA call that another thread (a reader, a
+        # profiler) makes meanwhile is not refused for this capture.
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            self._packed, self._layout = pack_outputs(program(self.input))
+        except Exception as err:
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()  # the capture ``err`` left open
+            raise _capture_failed(err) from err
+        try:
+            graph.capture_end()
+        except RuntimeError as err:
+            raise _capture_failed(err) from err
+        self._graph = graph
+
+    def replay(self, raw):
+        """The outputs of ``raw`` (the captured shape), queued."""
+        self.input.copy_(raw)
+        self._graph.replay()
+        return unpack_outputs(self._packed.clone(), self._layout)
+
+
 class PendingBatch:
     """One batch queued on the detector's device.
 
@@ -269,6 +378,12 @@ class BatchDetector:
         self._stream = unfold.StreamCarry(config.history_len, self.device)
         # Batches that overflowed the gate and re-ran in full.
         self.gate_overflows = 0
+        # submit_raw's CUDA graphs, one per raw shape, None for a shape
+        # that has run once (graph_step), and how often one was
+        # captured and replayed.
+        self._graphs = {}
+        self.graph_captures = 0
+        self.graph_replays = 0
         self._load_state(self.numpy_state(template, config)
                          if state is None else state)
         self._corr_interp, half = self._correlation_interpolator()
@@ -504,7 +619,7 @@ class BatchDetector:
         src = blocks if cfg.sync_mode == "fractional" else fft
         rows = (src, c_idx, c_off, self._signal_energy(blocks))
         cap = cfg.gate_capacity
-        if cap and cap < blocks.shape[0]:
+        if gated(cap, blocks.shape[0]):
             corr_out, overflow = self._corr_stage_gated(rows, c_det, cap)
 
             def redo():
@@ -523,7 +638,7 @@ class BatchDetector:
         blocks: all of them ungated; under the gate its capacity, and
         the whole batch again after an overflow."""
         cap = self.config.gate_capacity
-        if not cap or cap >= rows:
+        if not gated(cap, rows):
             return rows
         return cap + rows if overflowed else cap
 
@@ -778,12 +893,39 @@ class BatchDetector:
 
     def submit_raw(self, raw):
         """Queue raw uint8 interleaved I/Q [B, 2N] (tensor or numpy);
-        the conversion to complex64 runs on the detector's device."""
+        the conversion to complex64 runs on the detector's device.  An
+        ungated program on a CUDA device runs as the CUDA graph of its
+        shape (:func:`graph_step`)."""
         raw = torch.as_tensor(raw).to(self.device)
-        if raw.dim() != 2 or raw.shape[1] != 2 * self.config.block_len:
+        if raw.dtype != torch.uint8 or raw.dim() != 2 \
+                or raw.shape[1] != 2 * self.config.block_len:
             raise ValueError("raw must be uint8 [B, {}]".format(
                 2 * self.config.block_len))
-        return self._detect_batch(iq_mod.raw_to_iq(raw))
+        key = tuple(raw.shape)
+        step = graph_step(self.device.type, self.config.gate_capacity,
+                          key, self._graphs)
+        if step in ("eager", "first"):
+            if step == "first":
+                self._graphs[key] = None
+            return self._detect_batch(iq_mod.raw_to_iq(raw))
+        with torch.cuda.device(self.device):
+            if step == "capture":
+                self._graphs[key] = self._capture(raw)
+                self.graph_captures += 1
+            self.graph_replays += 1
+            return PendingBatch(self._graphs[key].replay(raw))
+
+    def _raw_program(self, raw):
+        return self._detect_batch(iq_mod.raw_to_iq(raw)).result()
+
+    def _capture(self, raw):
+        """The graph of ``raw``'s shape, captured on a side stream (a
+        capture cannot run on the default stream).  The shape's first
+        batch ran eagerly on the current stream and made its cuFFT
+        plans, loaded its kernels and uploaded its constants."""
+        static = torch.empty_like(raw)  # written on the current stream
+        with torch.cuda.stream(torch.cuda.Stream()):
+            return _GraphedProgram(self._raw_program, static)
 
     def submit_raw_stream(self, new_raw):
         """Queue CONTIGUOUS raw uint8 I/Q stream bytes [B*2*new_len]:

@@ -238,9 +238,16 @@ def make_polyfit_interpolator(width: int):
     """
     xs = np.arange(-(width // 2), width // 2 + 1).astype(np.float64)
     pinv = np.linalg.pinv(np.stack([xs**2, xs, np.ones_like(xs)], axis=1))
+    # The matrix on each (dtype, device), moved there once: no upload a
+    # batch, and a captured CUDA graph reads it by address on replays.
+    moved = {}
 
     def interpolate(values: torch.Tensor) -> torch.Tensor:
-        p = torch.as_tensor(pinv, dtype=values.dtype, device=values.device)
+        key = (values.dtype, values.device)
+        p = moved.get(key)
+        if p is None:
+            p = moved[key] = torch.as_tensor(pinv, dtype=values.dtype,
+                                             device=values.device)
         # Element-wise product and sum (no matmul: no TF32 path at all).
         coeffs = torch.sum(values[..., None, :] * p, dim=-1)
         return -coeffs[..., 1] / guard_denominator(coeffs[..., 0]) / 2.0

@@ -189,7 +189,11 @@ def _real_forms(c, form):
     return (comb,)
 
 
-@functools.lru_cache(maxsize=64)
+# The device constants are kept for the life of the process (no
+# eviction): a captured CUDA graph (dsp/detector.py) reads them by
+# address on every replay.  There is one entry per transform shape and
+# form a process uses.
+@functools.cache
 def _const(key, device, form, dtype=torch.float32):
     """The constant ``key`` on ``device`` in ``form`` ('complex', 'index'
     or a :func:`_real_forms` form), moved there once."""
@@ -409,7 +413,7 @@ def windowed_dft(x, sel, impl="auto", precision="highest"):
     return torch.fft.fft(x, dim=-1).index_select(-1, _bins(sel_t, x.device))
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache  # kept, as _const's entries are
 def _bins(sel, device):
     """int64 bin indices ``sel`` on ``device``, moved there once."""
     return torch.tensor(sel, dtype=torch.int64, device=device)

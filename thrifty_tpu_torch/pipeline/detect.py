@@ -535,6 +535,11 @@ def _main(argv=None):
             print("gate: {} batches overflowed capacity {} and re-ran in "
                   "full".format(detector.gate_overflows,
                                 args.gate_capacity), file=info_out)
+        if detector.graph_captures:
+            print("graph: {} batches replayed the detect program's CUDA "
+                  "graph ({} captured)".format(detector.graph_replays,
+                                               detector.graph_captures),
+                  file=info_out)
         if pump is not None:
             print(pump.stats_line(), file=info_out)
         print(spans_line(kept), file=info_out)

@@ -213,6 +213,12 @@ def test_on_the_card(tmp_path, cuda_device, device_unfold, gate):
     for rec in kept:
         stamps = [t for name in LOOP_ORDER for t in rec["spans"][name]]
         assert stamps == sorted(stamps), rec
+        if rec["counts"].get("overflowed"):
+            wait, inner = rec["spans"]["drain.wait"], rec["spans"][spans.REDO]
+            assert wait[0] <= inner[0] <= inner[1] <= wait[1]
+        else:
+            assert spans.REDO not in rec["spans"]
+    assert any(r["counts"].get("overflowed") for r in kept) == bool(gate)
 
 
 @pytest.mark.parametrize("how", ["read", "read_unfold"])
@@ -276,3 +282,155 @@ def test_detect_reports_spans_unless_quiet(tmp_path, capsys, quiet):
     assert ("spans over 6 batches, mean ms a batch: ingest.read" in text) \
         != quiet
     assert not spans.enabled()
+
+
+@pytest.mark.parametrize("gate", [0, 1, 7])
+def test_gate_counts_and_redo_span(tmp_path, gate):
+    """Every gated batch counts ``gate_rows`` (its carrier-positive rows,
+    padding included) and ``overflowed``; exactly the overflowed ones
+    hold one ``drain.redo``, inside ``drain.wait``; an ungated batch
+    holds none of the three."""
+    read, _, kept, _ = run(tmp_path, gate=gate)
+    ref = detector()
+    redo = 0
+    for (b, n, raw), rec in zip(read, kept):
+        counts, took = rec["counts"], rec["spans"]
+        if not gate:
+            assert "gate_rows" not in counts and "overflowed" not in counts
+            assert spans.REDO not in took
+            continue
+        padded = np.full((BATCH, 2 * BLOCK), 128, np.uint8)
+        padded[:n] = raw
+        rows = int(ref.detect_raw(padded)["carrier_detect"].sum())
+        assert counts["gate_rows"] == rows
+        assert counts["overflowed"] == int(rows > gate)
+        assert (spans.REDO in took) == (rows > gate)
+        if spans.REDO in took:
+            redo += 1
+            wait, inner = took["drain.wait"], took[spans.REDO]
+            assert wait[0] <= inner[0] <= inner[1] <= wait[1]
+        assert counts["corr_rows"] == gate + (BATCH if rows > gate else 0)
+    assert (redo > 0) == (gate == 1)
+    assert redo == sum(r["counts"].get("overflowed", 0) for r in kept)
+
+
+def host_reads(monkeypatch):
+    """Counts the calls that copy a tensor's value to the host."""
+    calls = []
+    for name in ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        inner = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _inner=inner, _name=name, **kw):
+            calls.append(_name)
+            return _inner(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    return calls
+
+
+def overflowing_batches(count=2):
+    """``count`` batches of ``stream_bytes()`` as the device-unfold loop
+    takes them (contiguous new bytes), each with more than one carrier."""
+    data = np.frombuffer(stream_bytes(), np.uint8)
+    step = BATCH * 2 * NEW
+    return [(np.arange(b * BATCH, (b + 1) * BATCH, dtype=np.float64),
+             np.arange(b * BATCH, (b + 1) * BATCH),
+             data[b * step:(b + 1) * step].copy()) for b in range(count)]
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_resolving_an_overflow_reads_the_flag_once(monkeypatch, record):
+    """The drain of an overflowing gated batch makes the host reads it
+    makes without the recorder: the overflow flag and the outputs'
+    copies.  Off, it reads no clock and files nothing."""
+    def loop():
+        det = detector(gate=1)
+        calls = host_reads(monkeypatch)
+        list(detect_batches(det, iter(overflowing_batches()), BATCH,
+                            device_unfold=True))
+        monkeypatch.undo()
+        assert det.gate_overflows == 2
+        return calls
+
+    baseline = loop()
+    assert baseline.count("__bool__") == 2
+    if record:
+        spans.enable()
+    else:
+        def no_clock():
+            raise AssertionError("the clock was read")
+
+        monkeypatch.setattr(time, "perf_counter_ns", no_clock)
+    assert loop() == baseline
+    kept = spans.batches()
+    if record:
+        assert [r["counts"]["overflowed"] for r in kept] == [1, 1]
+        assert all(r["counts"]["gate_rows"] > 1 for r in kept)
+        assert all(spans.REDO in r["spans"] for r in kept)
+    else:
+        assert kept == []
+
+
+class OnlyResult:
+    """A wrapper that shows the loop nothing of the batch but
+    ``result()``, as a caller's timing wrapper may."""
+
+    def __init__(self, pending):
+        self._pending = pending
+
+    def result(self):
+        return self._pending.result()
+
+
+class Wrapped:
+    """The detector behind a wrapper that passes attribute reads on and
+    wraps each queued batch in :class:`OnlyResult`."""
+
+    def __init__(self, det):
+        self._det = det
+
+    def __getattr__(self, name):
+        return getattr(self._det, name)
+
+    def submit_raw_stream(self, new_raw):
+        return OnlyResult(self._det.submit_raw_stream(new_raw))
+
+
+def test_gate_is_recorded_through_wrappers():
+    """The loop learns what it files of the gate from the detector and
+    the batch's outputs, so a detector and batches behind wrappers are
+    recorded alike."""
+    def kept(det):
+        spans.enable()
+        list(detect_batches(det, iter(overflowing_batches()), BATCH,
+                            device_unfold=True))
+        return [(r["counts"], sorted(r["spans"])) for r in spans.batches()]
+
+    direct = kept(detector(gate=1))
+    assert kept(Wrapped(detector(gate=1))) == direct
+    assert [c["overflowed"] for c, _ in direct] == [1, 1]
+    assert all(spans.REDO in names for _, names in direct)
+
+
+def test_gated_spans_line(tmp_path):
+    _, _, kept, _ = run(tmp_path, gate=1)
+    line = spans_line(kept)
+    over = sum(r["counts"]["overflowed"] for r in kept)
+    assert spans.REDO + " " in line
+    assert "overflowed {} of 6 gated batches".format(over) in line
+    assert "overflowed" not in spans_line(run(tmp_path)[2])
+
+
+def test_detect_reports_the_gate_on_its_spans_line(tmp_path, capsys):
+    np.save(tmp_path / "t.npy", TPL)
+    (tmp_path / "s.bin").write_bytes(stream_bytes())
+    argv = ["detect", str(tmp_path / "s.bin"), "--raw",
+            "--template", str(tmp_path / "t.npy"), "--block-size", "2048",
+            "--history", "256", "--carrier-window", "7-110",
+            "--batch-size", "8", "--t0", "1.5e9", "--device", "cpu",
+            "--gate-capacity", "1", "-o", str(tmp_path / "o.toad")]
+    assert main(argv) == 0
+    line = [s for s in capsys.readouterr().out.splitlines()
+            if s.startswith("spans over 6 batches")][0]
+    assert "drain.redo " in line and " of 6 gated batches" in line

@@ -40,7 +40,8 @@ from thrifty_tpu_torch.config import settings as settings_mod
 from thrifty_tpu_torch.config.parsers import normalize_freq_range
 from thrifty_tpu_torch.device import DEVICES, resolve_device
 from thrifty_tpu_torch.dsp import util
-from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
+from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig, \
+    gated
 from thrifty_tpu_torch.io import card, toad
 from thrifty_tpu_torch.io import tpl as tpl_io
 from thrifty_tpu_torch.io.stream import StreamPump, prefetch_iter
@@ -85,7 +86,9 @@ class SummaryFormatter:
 
 def spans_line(records):
     """The at-exit report's line on the recorded batches: the mean ms a
-    batch of each span, the ring's wait and the carrier-positive rows."""
+    batch of each span (``drain.redo`` over the batches that re-ran),
+    the ring's wait, the carrier-positive rows and the gated batches
+    that overflowed."""
     if not records:
         return "spans: no batch recorded"
 
@@ -93,7 +96,7 @@ def spans_line(records):
         return sum(values) / len(values)
 
     parts = []
-    for name in spans.SPANS:
+    for name in spans.SPANS + (spans.REDO,):
         took = [r["spans"][name] for r in records if name in r["spans"]]
         if took:
             parts.append("{} {:.3f}".format(
@@ -107,6 +110,10 @@ def spans_line(records):
     carrier = [c["carrier_rows"] for c in counts if "carrier_rows" in c]
     if carrier:
         line += "; carrier rows {:.2f} a batch".format(mean(carrier))
+    overflowed = [c["overflowed"] for c in counts if "overflowed" in c]
+    if overflowed:
+        line += "; overflowed {} of {} gated batches".format(
+            sum(overflowed), len(overflowed))
     return line
 
 
@@ -136,9 +143,13 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
     While :mod:`thrifty_tpu_torch.spans` records, each batch (id
     ``int(idx[0])``) gets the spans ``upload``, ``submit``,
     ``drain.wait``, ``drain.copy`` and ``drain.records`` and the counts
-    ``rows``, ``carrier_rows`` and ``corr_rows``; on a CUDA device a
-    CUDA event recorded after the batch's launches is waited for in
-    ``drain.wait``, so that the wait for the device leaves the copies.
+    ``rows``, ``carrier_rows`` and ``corr_rows``; a gated batch also
+    ``gate_rows`` (from its carrier flags) and ``overflowed`` (from the
+    detector's ``gate_overflows``), and one that overflowed the span
+    ``drain.redo`` around its re-run, inside ``drain.wait``.  On a CUDA
+    device a CUDA event recorded after the batch's launches is waited
+    for in ``drain.wait``, so that the wait for the device leaves the
+    copies and the re-run.
     """
     if device_unfold and card_out is not None:
         raise ValueError("card_out needs host-side overlap-save rows; "
@@ -168,14 +179,22 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
         recording = spans.enabled()
         with spans.span("drain.wait", bid):
             overflows = detector.gate_overflows if recording else 0
-            result = batch.result()
-            redone = recording and detector.gate_overflows != overflows
             if done is not None:
-                if redone:  # the re-run's launches follow the event
-                    done.record(torch.cuda.current_stream(device))
                 done.synchronize()
+            # An overflowed gated batch re-runs its correlation inside
+            # result(); kept as drain.redo only where it did.
+            with spans.span(spans.REDO, bid) as redo:
+                result = batch.result()
+                redone = recording and detector.gate_overflows != overflows
+                if redone and done is not None:
+                    # the re-run's launches follow the event
+                    done.record(torch.cuda.current_stream(device))
+                    done.synchronize()
+                if not redone:
+                    redo.drop()
         with spans.span("drain.copy", bid):
-            out = {k: v.cpu().numpy()[:n] for k, v in result.items()}
+            full = {k: v.cpu().numpy() for k, v in result.items()}
+            out = {k: v[:n] for k, v in full.items()}
         with spans.span("drain.records", bid):
             soa = detector.soa(idx, out["corr_sample"], out["corr_offset"])
             if summary is not None and summary_out is not None:
@@ -194,6 +213,11 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
                 bid, rows=n,
                 carrier_rows=int(np.count_nonzero(out["carrier_detect"])),
                 corr_rows=detector.corr_rows(max(n, batch_size), redone))
+            c_det = full["carrier_detect"]
+            if gated(detector.config.gate_capacity, len(c_det)):
+                # the count the gate compared: padding rows included
+                spans.count(bid, gate_rows=int(np.count_nonzero(c_det)),
+                            overflowed=int(redone))
         return records
 
     try:

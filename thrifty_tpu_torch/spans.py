@@ -15,9 +15,13 @@ batches are kept, so a long run cannot grow it without bound.
 
 Spans: ``ingest.read`` (``io.stream.StreamPump``), ``upload``
 (``pipeline.host.PinnedUpload``), ``submit``, ``drain.wait``,
-``drain.copy`` and ``drain.records`` (``pipeline.detect.detect_batches``).
+``drain.copy`` and ``drain.records`` (``pipeline.detect.detect_batches``);
+on a gated batch that overflowed, ``drain.redo`` inside ``drain.wait``:
+the full-batch re-run of its correlation.
 Counts: ``ring_wait_ns`` at ``ingest.read``; ``rows``, ``carrier_rows``
-and ``corr_rows`` in drain.
+and ``corr_rows`` in drain, and on a gated batch ``gate_rows`` (the
+carrier-positive rows the gate compared with its capacity) and
+``overflowed`` (0 or 1).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import time
 # The spans in the order the detect loop runs them for one batch.
 SPANS = ("ingest.read", "upload", "submit", "drain.wait", "drain.copy",
          "drain.records")
+# The span that only an overflowed gated batch has, inside drain.wait.
+REDO = "drain.redo"
 
 _recorder = None
 

@@ -28,7 +28,8 @@ bounds and the empty launch, then drives the port on the card:
   counted by name in a device trace (``device_kernels()``), where a
   CUDA graph's replay runs them too; elsewhere the kernels' launch
   counters, which count their launchers' calls, are held to the
-  program runs (``_detect_batch``: eager or captured) that called them;
+  program runs (``_detect_batch``: eager or captured; a gated batch's
+  re-run from its bytes, ``_redo_program``) that called them;
 - the transform family (``dsp/mxu_fft.py``): ``fft``, ``ifft``,
   ``ifft_head``, ``windowed_dft`` (the carrier window, W = 110, and a
   wrapped window) and ``fft_ramped`` as matmul and matmul3 at each
@@ -894,13 +895,15 @@ def device_kernels():
                 counts[key] += name in e.name
 
 
-def run_cli(command, args, blocks, per_batch, fits=None, traced=True):
+def run_cli(command, args, blocks, per_batch, fits=None, traced=True,
+            first=None):
     """Run the port's CLI with the kernels' runs on the card counted
     (device_kernels()); power_peak's must equal ``per_batch`` runs for
-    each batch of ``blocks`` blocks, and each fit kernel's its count in
-    ``fits`` ({kernel: runs per batch}).  ``traced`` False, for a run
-    that is timed, counts the launchers' calls instead (launch_counts()
-    from 0), which is the runs where the CLI replays no CUDA graph.
+    each batch of ``blocks`` blocks (``first`` for the first batch,
+    where given), and each fit kernel's its count in ``fits`` ({kernel:
+    runs per batch}).  ``traced`` False, for a run that is timed, counts
+    the launchers' calls instead (launch_counts() from 0), which is the
+    runs where the CLI replays no CUDA graph.
     Returns (seconds, power_peak runs per batch)."""
     from thrifty_tpu_torch.cli import main
 
@@ -914,9 +917,11 @@ def run_cli(command, args, blocks, per_batch, fits=None, traced=True):
         seconds = time.perf_counter() - t0
     counts = ran if traced else launch_counts()
     launches = counts["power_peak"]
-    check(launches == per_batch * batches,
-          "{} {}: {} kernel launches for {} batches, expected {} each".format(
-              command, args[:2], launches, batches, per_batch))
+    want = per_batch * (batches - 1) + (per_batch if first is None
+                                        else first)
+    check(launches == want,
+          "{} {}: {} kernel launches for {} batches, expected {}".format(
+              command, args[:2], launches, batches, want))
     for name, want in (fits or {}).items():
         check(counts[name] == want * batches,
               "{} {}: {} {} launches for {} batches, expected {} each".format(
@@ -1595,12 +1600,15 @@ def gate_phase(card_name, tmp, cap, template, raw_path, tpl_path):
     n = len(cap.indices)
     ref = open(os.path.join(tmp, "raw.toad")).read()
     per_batch = {}
-    for name, capacity, launches in (("detect_gated", BATCH // 2, 2),
-                                     ("detect_gate_overflow", 8, 3)):
+    # An overflowing batch: the gated correlation, then the full one; a
+    # replayed one re-runs from its bytes, the carrier stage included.
+    for name, capacity, first, launches in (
+            ("detect_gated", BATCH // 2, 2, 2),
+            ("detect_gate_overflow", 8, 3, 4)):
         out = os.path.join(tmp, name + ".toad")
         seconds, per_batch[name] = run_cli("detect", raw_args(
             raw_path, out, tpl_path, ["--gate-capacity", str(capacity)]),
-            n, launches)
+            n, launches, first=first)
         print("detect --raw --gate-capacity {} CLI: {:.4g} IQ samples/s ({} "
               "blocks); {}".format(capacity, n * NEW_LEN / seconds, n,
                                    card_name))
@@ -1611,9 +1619,11 @@ def gate_phase(card_name, tmp, cap, template, raw_path, tpl_path):
             compare_toads(load_toad(out), load_toad(os.path.join(
                 tmp, "raw.toad")), "gated CLI")
     print("detect --raw --gate-capacity {}: the ungated .toad within "
-          "TOAD_TOLS, 2 launches per batch; --gate-capacity 8 overflows "
-          "every batch, re-runs it in full (3 launches per batch) and "
-          "writes the ungated .toad byte for byte".format(BATCH // 2))
+          "TOAD_TOLS, 2 power/peak runs per batch; --gate-capacity 8 "
+          "overflows every batch and re-runs it in full (3 runs on the "
+          "eager first batch, 4 on a replayed one, whose re-run does the "
+          "carrier stage again) and writes the ungated .toad byte for "
+          "byte".format(BATCH // 2))
     return per_batch
 
 
@@ -2915,45 +2925,65 @@ with chip_smoke.counted_batches() as seen:
     launches = pp.launches
 print(json.dumps({{"rc": rc, "launches": launches,
                   "expected": chip_smoke.expected_launches(seen),
-                  "batches": len(seen)}}))
+                  "batches": chip_smoke.program_runs(seen)}}))
 """
 
 
 @contextlib.contextmanager
 def counted_batches():
-    """Every batch a ``BatchDetector`` queues while the block runs, as
-    (detector, PendingBatch), read off the detector's one entry to its
-    detect program."""
+    """Every run of a ``BatchDetector``'s detect program while the block
+    runs (eager or captured), as (detector, PendingBatch), read off the
+    detector's one entry to it, and every run of a gated batch's
+    re-run program from its raw bytes, as (detector, None)."""
     from thrifty_tpu_torch.dsp.detector import BatchDetector
 
     seen = []
-    original = BatchDetector._detect_batch
+    original = BatchDetector._detect_batch, BatchDetector._redo_program
 
     def counted(self, blocks):
-        pending = original(self, blocks)
+        pending = original[0](self, blocks)
         seen.append((self, pending))
         return pending
 
+    def counted_redo(self, raw):
+        seen.append((self, None))
+        return original[1](self, raw)
+
     BatchDetector._detect_batch = counted
+    BatchDetector._redo_program = counted_redo
     try:
         yield seen
     finally:
-        BatchDetector._detect_batch = original
+        BatchDetector._detect_batch, BatchDetector._redo_program = original
 
 
 def expected_launches(seen):
-    """The power/peak launches the batches ``seen`` make: on the card 2
-    a batch (carrier and correlation), 1 where the carrier stage runs
+    """The power/peak launches of the program runs ``seen``: on the card
+    2 a run (carrier and correlation), 1 where the carrier stage runs
     without the kernel (the windowed carrier DFT, the peak filter), plus
-    1 for each gated batch that overflowed and re-ran its correlation;
-    none on the CPU."""
+    1 for each eager gated batch that overflowed and re-ran its
+    correlation; a re-run from raw bytes does the carrier stage again.
+    None on the CPU."""
     total = 0
     for det, pending in seen:
         if det.device.type == "cuda":
             plain_carrier = det._carrier_win is not None \
                 or det._peak_filter is not None
-            total += (1 if plain_carrier else 2) + bool(pending.overflowed)
+            total += (1 if plain_carrier else 2) + bool(
+                pending is not None and pending.overflowed)
     return total
+
+
+def overflows(seen):
+    """The overflow re-runs of the detectors of ``seen``, every kind."""
+    return sum({id(det): det.gate_overflows for det, _ in seen}.values())
+
+
+def program_runs(seen):
+    """The detect program's runs on the card in ``seen`` (not the
+    re-runs)."""
+    return sum(det.device.type == "cuda" and pending is not None
+               for det, pending in seen)
 
 
 def bench_contract(data, label):
@@ -3031,17 +3061,17 @@ def bench_phase(card_name):
         data = bench_line(buf.getvalue())
         bench_contract(data, label)
         want = expected_launches(seen)
-        overflows = sum(bool(p.overflowed) for _, p in seen)
+        runs, redone = program_runs(seen), overflows(seen)
         check(got == want, "bench {}: {} power/peak launches, want {} ({} "
-              "batches, {} overflows)".format(label, got, want, len(seen),
-                                               overflows))
+              "program runs, {} overflows)".format(label, got, want, runs,
+                                                   redone))
         check(len(seen) > 0 or data["metric"] == "serve_throughput",
               "bench {}: no detector batch".format(label))
         launches += got
-        batches += sum(d.device.type == "cuda" for d, _ in seen)
-        print("bench {} ({:.1f} s; {} power/peak launches in {} batches, "
-              "{} overflows; {}): {}".format(
-                  label, seconds, got, len(seen), overflows, card_name,
+        batches += runs
+        print("bench {} ({:.1f} s; {} power/peak launches in {} program "
+              "runs, {} overflows; {}): {}".format(
+                  label, seconds, got, runs, redone, card_name,
                   json.dumps(data)), flush=True)
 
     t0 = time.perf_counter()
@@ -3614,9 +3644,9 @@ def multirank_phase(card_name, device="cuda"):
 # The tools phase: the port's counterparts of the JAX package's tool
 # scripts, each run as a user runs it, in a child process on the card.
 # Every child (and every process it spawns) gets this sitecustomize on
-# PYTHONPATH: it wraps BatchDetector._detect_batch as counted_batches()
-# does and, at exit, writes the process's power_peak.launches beside
-# expected_launches() of the batches it queued.
+# PYTHONPATH: it wraps BatchDetector._detect_batch and _redo_program as
+# counted_batches() does and, at exit, writes the process's
+# power_peak.launches beside expected_launches() of the runs it saw.
 COUNTING_HOOK = r'''
 import atexit, json, os, sys
 from importlib.machinery import PathFinder
@@ -3633,14 +3663,20 @@ class _CountBatches:
 
         def exec_module(module):
             load(module)
-            original = module.BatchDetector._detect_batch
+            detector = module.BatchDetector
+            original = detector._detect_batch, detector._redo_program
 
             def counted(self, blocks):
-                pending = original(self, blocks)
+                pending = original[0](self, blocks)
                 _SEEN.append((self, pending))
                 return pending
 
-            module.BatchDetector._detect_batch = counted
+            def counted_redo(self, raw):
+                _SEEN.append((self, None))
+                return original[1](self, raw)
+
+            detector._detect_batch = counted
+            detector._redo_program = counted_redo
 
         spec.loader.exec_module = exec_module
         return spec
@@ -3661,10 +3697,8 @@ def _report():
     with open(path + ".part", "w") as f:
         json.dump({"launches": pp.launches,
                    "expected": chip_smoke.expected_launches(_SEEN),
-                   "batches": sum(d.device.type == "cuda"
-                                  for d, _ in _SEEN),
-                   "overflows": sum(bool(p.overflowed) for _, p in _SEEN)},
-                  f)
+                   "batches": chip_smoke.program_runs(_SEEN),
+                   "overflows": chip_smoke.overflows(_SEEN)}, f)
     os.replace(path + ".part", path)  # a reader sees whole files only
 '''
 TOOL_TIMEOUT_S = 300

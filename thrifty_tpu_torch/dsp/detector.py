@@ -56,16 +56,19 @@ launches the kernel: one launch per batch.  ``use_pallas='off'`` (the
 plain reductions) is for a CPU detector only: on a CUDA device the
 kernel is the only reduction, and the detector refuses 'off'.
 
-On a CUDA device an ungated ``submit_raw`` runs the program as one
-CUDA graph (:func:`graph_step`, :class:`_GraphedProgram`): the first
-batch of each raw shape runs eagerly, the second is captured, and it
-and every later batch of that shape replay the capture, the same
-kernels in the same order on the same plans, so the outputs are the
-eager program's bit for bit.  ``graph_captures`` and ``graph_replays``
-count both.  The kernels' launch counters count the calls of their
-launchers, so they advance on an eager batch and on a capture, and not
-on a replay.  ``submit``, ``submit_raw_stream``, a gated program and a
-CPU detector run eagerly.
+On a CUDA device ``submit_raw`` runs the program as one CUDA graph
+(:func:`graph_step`, :class:`_GraphedProgram`): the first batch of each
+raw shape runs eagerly, the second is captured, and it and every later
+batch of that shape replay the capture, the same kernels in the same
+order on the same plans, so the outputs are the eager program's bit for
+bit.  A gated program's graph ends with its overflow flag among the
+outputs; a replayed batch that overflowed re-runs from its own raw
+bytes (:meth:`BatchDetector._redo_program`), as a second graph by the
+same rule, advanced by overflows.  ``graph_captures`` and ``graph_replays``
+count the program's graph, ``redo_replays`` the re-run's.  The kernels'
+launch counters count the calls of their launchers, so they advance on
+an eager run and on a capture, and not on a replay.  ``submit``,
+``submit_raw_stream`` and a CPU detector run eagerly.
 """
 
 from __future__ import annotations
@@ -197,24 +200,28 @@ def gated(gate_capacity, rows):
     return bool(gate_capacity) and gate_capacity < rows
 
 
-def graph_step(device_type, gate_capacity, shape, graphs):
-    """How ``submit_raw`` runs a raw batch of ``shape`` ([B, 2N]):
-    'eager' (op by op, never graphed), 'first' (op by op, the shape's
-    first batch), 'capture' (a shape seen before and not yet captured:
-    captured as a CUDA graph, then replayed) or 'replay' (the shape's
-    graph).  A shape that comes once is never captured.
+def graph_step(device_type, shape, graphs):
+    """How a graphed program runs on a raw batch of ``shape`` ([B, 2N]):
+    'eager' (op by op, never graphed: a CPU device), 'first' (op by op,
+    the shape's first batch), 'capture' (a shape seen before and not yet
+    captured: captured as a CUDA graph, then replayed) or 'replay' (the
+    shape's graph).  A shape that comes once is never captured.
 
-    Only an ungated program on a CUDA device is graphed: a gated
-    batch's :class:`PendingBatch` re-reads the batch's intermediates
-    when it overflows.  ``graphs``: shape -> its graph, or None where
-    the shape has run once.
+    ``graphs``: shape -> its graph, or None where the shape has run
+    once.  Two programs follow the rule, each with its own ``graphs``:
+    ``submit_raw``'s, gated or not, batch by batch, and a gated batch's
+    overflow re-run, overflow by overflow.
     """
-    if device_type != "cuda" or gated(gate_capacity, shape[0]):
+    if device_type != "cuda":
         return "eager"
     shape = tuple(shape)
     if shape not in graphs:
         return "first"
     return "capture" if graphs[shape] is None else "replay"
+
+
+# The key of a gated program's overflow flag among its graphed outputs.
+OVERFLOW = "gate_overflow"
 
 
 def pack_outputs(out):
@@ -294,11 +301,15 @@ class PendingBatch:
     :meth:`result` returns the batch's output dict.  Under the carrier
     gate the batch also holds an on-device overflow flag (more carrier
     detections than the capacity): :meth:`result` reads it, and when it
-    is set re-runs the correlation on the whole batch before returning,
-    so no block is dropped and the decisions are those of the JAX gated
-    detector's full-batch branch.  That flag is the one host read of a
-    gated batch; a caller that copies the outputs back waits for the
-    batch there anyway.  Ungated batches involve no host read.
+    is set calls ``redo``, which re-runs the correlation on the whole
+    batch, so no block is dropped and the decisions are those of the
+    JAX gated detector's full-batch branch.  An eager batch's ``redo``
+    reuses its intermediates; a replayed batch (whose graph's buffers
+    hold a later batch by then) re-runs from its own raw bytes
+    (:meth:`BatchDetector._redo`).  That flag is the one
+    host read of a gated batch; a caller that copies the outputs back
+    waits for the batch there anyway.  Ungated batches involve no host
+    read.
     """
 
     def __init__(self, out, overflow=None, redo=None):
@@ -307,6 +318,14 @@ class PendingBatch:
         self._redo = redo
         # None until resolved (or for an ungated batch), then bool.
         self.overflowed = None
+
+    def program_outputs(self):
+        """The output dict as the program left it, with a gated batch's
+        on-device overflow flag under ``OVERFLOW``, unread: what a graph
+        of the program packs."""
+        if self._overflow is None:
+            return self._out
+        return dict(self._out, **{OVERFLOW: self._overflow})
 
     def result(self):
         if self._overflow is not None:
@@ -380,10 +399,12 @@ class BatchDetector:
         self.gate_overflows = 0
         # submit_raw's CUDA graphs, one per raw shape, None for a shape
         # that has run once (graph_step), and how often one was
-        # captured and replayed.
+        # captured and replayed; the overflow re-run's alike.
         self._graphs = {}
         self.graph_captures = 0
         self.graph_replays = 0
+        self._redo_graphs = {}
+        self.redo_replays = 0
         self._load_state(self.numpy_state(template, config)
                          if state is None else state)
         self._corr_interp, half = self._correlation_interpolator()
@@ -597,6 +618,27 @@ class BatchDetector:
     # -- the detect program --------------------------------------------------
 
     def _detect_batch(self, blocks):
+        carrier_out, rows = self._carrier_and_rows(blocks)
+        cap = self.config.gate_capacity
+        if gated(cap, blocks.shape[0]):
+            corr_out, overflow = self._corr_stage_gated(rows, carrier_out[0],
+                                                        cap)
+
+            def redo():
+                self.gate_overflows += 1
+                return self._overflow_outputs(carrier_out, rows)
+
+            return PendingBatch(self._finish_outputs(*carrier_out,
+                                                     *corr_out),
+                                overflow, redo)
+        return PendingBatch(self._finish_outputs(
+            *carrier_out, *self._corr_stage(*rows)))
+
+    def _carrier_and_rows(self, blocks):
+        """Stages 1-2 of a [B, N] batch and what the correlation reads:
+        (the carrier outputs (c_det, c_idx, c_off, c_mag, c_noise), the
+        rows of :meth:`_corr_stage` (src, c_idx, c_off, signal
+        energy))."""
         cfg = self.config
         if cfg.use_pallas == "on":
             self._check_kernel_program(blocks.shape[0])
@@ -612,26 +654,12 @@ class BatchDetector:
         else:
             fft = mxu_fft.fft(blocks, cfg.fft_impl, c_prec)
             carrier_out = self._carrier_stage(fft)
-        c_det, c_idx, c_off = carrier_out[:3]
+        _, c_idx, c_off = carrier_out[:3]
 
         # Stages 3-5 read the time-domain blocks (fractional: ramp +
         # second FFT) or roll the carrier FFT (integer, preshift).
         src = blocks if cfg.sync_mode == "fractional" else fft
-        rows = (src, c_idx, c_off, self._signal_energy(blocks))
-        cap = cfg.gate_capacity
-        if gated(cap, blocks.shape[0]):
-            corr_out, overflow = self._corr_stage_gated(rows, c_det, cap)
-
-            def redo():
-                self.gate_overflows += 1
-                return self._finish_outputs(
-                    *carrier_out, *self._corr_stage_masked(rows, c_det))
-
-            return PendingBatch(self._finish_outputs(*carrier_out,
-                                                     *corr_out),
-                                overflow, redo)
-        return PendingBatch(self._finish_outputs(
-            *carrier_out, *self._corr_stage(*rows)))
+        return carrier_out, (src, c_idx, c_off, self._signal_energy(blocks))
 
     def corr_rows(self, rows, overflowed=False):
         """The rows the correlation runs on in a batch of ``rows``
@@ -772,14 +800,15 @@ class BatchDetector:
         keep = c_det.index_select(0, sel)
         if self.bank:
             keep = keep[:, None]
-        scattered = []
-        for o in outs:
-            full = torch.zeros((batch,) + o.shape[1:], dtype=o.dtype,
-                               device=o.device)
-            full[sel] = torch.where(keep, o, torch.zeros_like(o))
-            scattered.append(full)
+        # index_copy_: the rows of sel are distinct, and it checks its
+        # indices on the device (no host sync inside a graph's capture).
+        scattered = tuple(
+            torch.zeros((batch,) + o.shape[1:], dtype=o.dtype,
+                        device=o.device).index_copy_(
+                0, sel, torch.where(keep, o, torch.zeros_like(o)))
+            for o in outs)
         overflow = torch.count_nonzero(c_det) > cap
-        return tuple(scattered), overflow
+        return scattered, overflow
 
     def _corr_stage_masked(self, rows, c_det):
         """The full-batch correlation of an overflowed gated batch, with
@@ -893,39 +922,82 @@ class BatchDetector:
 
     def submit_raw(self, raw):
         """Queue raw uint8 interleaved I/Q [B, 2N] (tensor or numpy);
-        the conversion to complex64 runs on the detector's device.  An
-        ungated program on a CUDA device runs as the CUDA graph of its
-        shape (:func:`graph_step`)."""
+        the conversion to complex64 runs on the detector's device.  On a
+        CUDA device the program runs as the CUDA graph of its shape
+        (:func:`graph_step`), and a gated batch keeps ``raw`` for its
+        overflow re-run: a device tensor passed in must not be written
+        before the batch's ``result()``."""
         raw = torch.as_tensor(raw).to(self.device)
         if raw.dtype != torch.uint8 or raw.dim() != 2 \
                 or raw.shape[1] != 2 * self.config.block_len:
             raise ValueError("raw must be uint8 [B, {}]".format(
                 2 * self.config.block_len))
         key = tuple(raw.shape)
-        step = graph_step(self.device.type, self.config.gate_capacity,
-                          key, self._graphs)
+        step = graph_step(self.device.type, key, self._graphs)
         if step in ("eager", "first"):
             if step == "first":
                 self._graphs[key] = None
             return self._detect_batch(iq_mod.raw_to_iq(raw))
-        with torch.cuda.device(self.device):
-            if step == "capture":
-                self._graphs[key] = self._capture(raw)
-                self.graph_captures += 1
-            self.graph_replays += 1
-            return PendingBatch(self._graphs[key].replay(raw))
+        out = self._replay(self._graphs, self._raw_program, raw)
+        self.graph_captures += step == "capture"
+        self.graph_replays += 1
+        overflow = out.pop(OVERFLOW, None)
+        if overflow is None:
+            return PendingBatch(out)
+        return PendingBatch(out, overflow, functools.partial(self._redo, raw))
 
     def _raw_program(self, raw):
-        return self._detect_batch(iq_mod.raw_to_iq(raw)).result()
+        """The program a graph of ``submit_raw`` captures: the output
+        dict, with a gated batch's on-device overflow flag under
+        OVERFLOW (read by its :class:`PendingBatch`, never here)."""
+        return self._detect_batch(iq_mod.raw_to_iq(raw)).program_outputs()
 
-    def _capture(self, raw):
-        """The graph of ``raw``'s shape, captured on a side stream (a
-        capture cannot run on the default stream).  The shape's first
-        batch ran eagerly on the current stream and made its cuFFT
-        plans, loaded its kernels and uploaded its constants."""
+    def _redo_program(self, raw):
+        """The overflow re-run of a gated batch from its raw bytes: the
+        carrier stage again (the same kernels on the same input, so the
+        eager re-run's values bit for bit) and the full-batch
+        correlation (:meth:`_corr_stage_masked`)."""
+        return self._overflow_outputs(
+            *self._carrier_and_rows(iq_mod.raw_to_iq(raw)))
+
+    def _overflow_outputs(self, carrier_out, rows):
+        """An overflowed gated batch's outputs from its carrier outputs
+        and correlation rows (:meth:`_carrier_and_rows`): the full-batch
+        correlation with the gate's masking."""
+        return self._finish_outputs(*carrier_out, *self._corr_stage_masked(
+            rows, carrier_out[0]))
+
+    def _redo(self, raw):
+        """The re-run of a replayed gated batch that overflowed:
+        :meth:`_redo_program` on the batch's own ``raw``, as
+        :func:`graph_step` says for the re-run's graphs (a shape's first
+        overflow eager, the second captured, replays after)."""
+        self.gate_overflows += 1
+        key = tuple(raw.shape)
+        if graph_step(self.device.type, key, self._redo_graphs) == "first":
+            self._redo_graphs[key] = None
+            return self._redo_program(raw)
+        self.redo_replays += 1
+        return self._replay(self._redo_graphs, self._redo_program, raw)
+
+    def _replay(self, graphs, program, raw):
+        """``program(raw)``'s outputs, replayed from the graph of
+        ``raw``'s shape in ``graphs``, captured first where ``graphs``
+        holds None for the shape."""
+        key = tuple(raw.shape)
+        with torch.cuda.device(self.device):
+            if graphs[key] is None:
+                graphs[key] = self._capture(program, raw)
+            return graphs[key].replay(raw)
+
+    def _capture(self, program, raw):
+        """The graph of ``program`` at ``raw``'s shape, captured on a
+        side stream (a capture cannot run on the default stream).  The
+        shape's first run was eager on the current stream and made its
+        cuFFT plans, loaded its kernels and uploaded its constants."""
         static = torch.empty_like(raw)  # written on the current stream
         with torch.cuda.stream(torch.cuda.Stream()):
-            return _GraphedProgram(self._raw_program, static)
+            return _GraphedProgram(program, static)
 
     def submit_raw_stream(self, new_raw):
         """Queue CONTIGUOUS raw uint8 I/Q stream bytes [B*2*new_len]:

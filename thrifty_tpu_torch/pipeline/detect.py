@@ -561,8 +561,10 @@ def _main(argv=None):
                                 args.gate_capacity), file=info_out)
         if detector.graph_captures:
             print("graph: {} batches replayed the detect program's CUDA "
-                  "graph ({} captured)".format(detector.graph_replays,
-                                               detector.graph_captures),
+                  "graph ({} captured); {} of {} overflow re-runs replayed "
+                  "the re-run's".format(
+                      detector.graph_replays, detector.graph_captures,
+                      detector.redo_replays, detector.gate_overflows),
                   file=info_out)
         if pump is not None:
             print(pump.stats_line(), file=info_out)

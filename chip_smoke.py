@@ -37,11 +37,12 @@ bounds and the empty launch, then drives the port on the card:
   and the unfactorable n = 6000 (TF32 off after every call), with their
   cold-L2 times and bounds beside cuFFT's; ``detect`` under
   ``--fft-impl matmul`` (windowed carrier, separable ramp), with
-  ``--carrier-fast off --ramp-fast off``, ``matmul3``, TF32 carrier or
-  transforms, against the default run and the ground truth; the golden
-  cards under ``--fft-impl matmul``; ``capture --fft-impl matmul``
-  against fastcard's archive; ``--pallas off`` (the plain reductions)
-  refused on the card, by the CLI and the detector, before any launch;
+  ``matmul3`` and with TF32 transforms, against the default run and the
+  ground truth, and with stddev threshold terms (the full-FFT carrier
+  stage) against the torch.fft run with the same terms; the golden cards under ``--fft-impl matmul``; ``capture
+  --fft-impl matmul`` against fastcard's archive; ``--pallas off`` (the
+  plain reductions) refused on the card, by the CLI and the detector,
+  before any launch;
 - ``detect --sync-mode integer`` and ``capture`` against the goldens of
   the compiled fastdet / fastcard (``tests/golden/fastdet``);
 - ``detect --raw --device-unfold`` against ``detect --raw``;
@@ -2183,14 +2184,9 @@ def program_timings(card_name, template):
                                      corr_thresh=CORR_STDDEV_THRESH)),
             ("peak_filter", template, dict(peak_filter_len=-1)),
             ("matmul", template, dict(fft_impl="matmul")),
-            ("matmul_full", template, dict(fft_impl="matmul",
-                                           carrier_fast="off",
-                                           ramp_fast="off")),
             ("matmul3", template, dict(fft_impl="matmul3")),
             ("matmul_high", template, dict(fft_impl="matmul",
-                                           fft_precision="high")),
-            ("matmul_carrier_high", template, dict(
-                fft_impl="matmul", carrier_precision="high"))):
+                                           fft_precision="high"))):
         det = BatchDetector(tmpl, DetectorConfig(carrier_window=(7, 110),
                                                  **kw), device=dev)
         fn = lambda: det.submit_raw(rows)
@@ -2427,34 +2423,36 @@ def transforms_phase(card_name):
     return timings
 
 
-# JAX's TestCarrierPrecision tolerances (tests/test_mxu_fft.py:498-512),
-# for TF32 in the carrier transform: carrier_energy rtol 2e-3,
-# carrier_offset atol 5e-3, corr_offset atol 1e-3 (and the SoA with it).
-HIGH_TOLS = dict(TOAD_TOLS)
-HIGH_TOLS.update({10: dict(rtol=2e-3, atol=1e-3), 9: dict(atol=5e-3),
-                  5: dict(atol=1e-3), 3: dict(atol=1e-3)})
-# TF32 in every transform (--fft-precision high): the correlation's GEMM
-# stages round their operands to TF32 (unit roundoff 2^-11), and the
+# TF32 in every transform (--fft-precision high): carrier_energy rtol
+# 2e-3 and carrier_offset atol 5e-3, JAX's tolerances for TF32 in the
+# carrier transform (tests/test_mxu_fft.py:498-512).  The correlation's
+# GEMM stages round their operands to TF32 (unit roundoff 2^-11), and the
 # Gaussian fit turns that into corr_offset (and SoA) differences from the
 # float32 run.  scripts/tf32_drift_torch.py over 32 captures like this
 # one on an H100 read at most 6.46e-3 samples (median 1.21e-3; this
 # capture 1.62e-3, PERF.md section 6), so these two columns are held at
-# 1e-2, that reading with about 1.5x headroom, and the rest as above.
-TF32_TOLS = dict(HIGH_TOLS)
-TF32_TOLS.update({5: dict(atol=1e-2), 3: dict(atol=1e-2)})
+# 1e-2, that reading with about 1.5x headroom, and the rest as the
+# .toad's.
+TF32_TOLS = dict(TOAD_TOLS)
+TF32_TOLS.update({10: dict(rtol=2e-3, atol=1e-3), 9: dict(atol=5e-3),
+                  5: dict(atol=1e-2), 3: dict(atol=1e-2)})
+# The stddev threshold terms of options_phase's detect_stats run.  The
+# carrier's variance term (2d) needs every bin's magnitude, so under
+# --fft-impl matmul the carrier stage takes the full four-step FFT and its
+# own power/peak launch instead of the windowed DFT: 2 launches a batch,
+# as the torch.fft run with the same terms.
+STATS_FLAGS = ["--carrier-threshold", "15s+2d", "--corr-threshold", "15s+2d"]
 # detect through the CLI on the full-size capture, one run per transform
-# configuration: (name, flags, power/peak launches per batch, tolerances
-# against the default run).
+# configuration: (name, flags the reference run shares, transform flags,
+# power/peak launches per batch, tolerances against the reference: the
+# default run's .toad, or a torch.fft run with the shared flags).
 TRANSFORM_RUNS = (
-    ("detect_matmul", ["--fft-impl", "matmul"], 1, TOAD_TOLS),
-    ("detect_matmul_full", ["--fft-impl", "matmul", "--carrier-fast", "off",
-                            "--ramp-fast", "off"], 2, TOAD_TOLS),
-    ("detect_matmul3", ["--fft-impl", "matmul3"], 1, TOAD_TOLS),
-    ("detect_matmul_carrier_high", ["--fft-impl", "matmul",
-                                    "--carrier-precision", "high"], 1,
-     HIGH_TOLS),
-    ("detect_matmul_high", ["--fft-impl", "matmul", "--fft-precision",
-                            "high"], 1, TF32_TOLS),
+    ("detect_matmul", [], ["--fft-impl", "matmul"], 1, TOAD_TOLS),
+    ("detect_matmul_stats", STATS_FLAGS, ["--fft-impl", "matmul"], 2,
+     TOAD_TOLS),
+    ("detect_matmul3", [], ["--fft-impl", "matmul3"], 1, TOAD_TOLS),
+    ("detect_matmul_high", [], ["--fft-impl", "matmul", "--fft-precision",
+                                "high"], 1, TF32_TOLS),
 )
 
 
@@ -2512,9 +2510,16 @@ def transform_detect_phase(card_name, tmp, cap, tpl_path):
 
     n = len(cap.indices)
     card_path = os.path.join(tmp, "full.card")
-    ref = load_toad(os.path.join(tmp, "full_gpu.toad"))
+    default = load_toad(os.path.join(tmp, "full_gpu.toad"))
     per_batch = {}
-    for name, extra, launches, tols in TRANSFORM_RUNS:
+    for name, shared, flags, launches, tols in TRANSFORM_RUNS:
+        ref = default
+        if shared:
+            ref_out = os.path.join(tmp, name + "_fft.toad")
+            run_cli("detect", [card_path, "-o", ref_out]
+                    + common_args("cuda", tpl_path) + shared, n, launches)
+            ref = load_toad(ref_out)
+        extra = shared + flags
         out = os.path.join(tmp, name + ".toad")
         seconds, per_batch[name] = run_cli(
             "detect", [card_path, "-o", out] + common_args("cuda", tpl_path)
@@ -2526,7 +2531,7 @@ def transform_detect_phase(card_name, tmp, cap, tpl_path):
         check_bursts(got, cap, name)
         diffs = {col: float(np.max(np.abs(got[:, col] - ref[:, col])))
                  for col in (3, 5, 9, 10)}
-        print("{} ({}): {} detections = the default run's, every burst "
+        print("{} ({}): {} detections = the reference run's, every burst "
               "within 0.05 samples; max |diff| soa {:.3g}, corr_offset {:.3g}, "
               "carrier_offset {:.3g}, carrier_energy {:.3g}; {} power/peak "
               "launches per batch; CLI {:.4g} IQ samples/s; {}".format(

@@ -17,9 +17,9 @@ the carrier and correlation detections on pure-noise blocks
         --fft-impl matmul --fft-precision high --json out.json
 
 Every transform knob of the detector is an option (``--sync-mode``,
-``--fft-impl``, ``--fft-precision``, ``--carrier-precision``), so the
-TF32 and bf16 GEMMs of the matmul transforms can be held to the float32
-curve.  Lines name the device; ``--json`` also writes the rows.
+``--fft-impl``, ``--fft-precision``), so the TF32 and bf16 GEMMs of the
+matmul transforms can be held to the float32 curve.  Lines name the
+device; ``--json`` also writes the rows.
 """
 
 import argparse
@@ -129,8 +129,6 @@ def main(argv=None):
                         choices=["auto", "matmul", "matmul3", "xla"])
     parser.add_argument("--fft-precision", type=str, default="highest",
                         choices=["highest", "high", "default"])
-    parser.add_argument("--carrier-precision", type=str, default="auto",
-                        choices=["auto", "highest", "high", "default"])
     parser.add_argument("--with-oracle", action="store_true",
                         help="also run the float64 oracle detector on each "
                              "detected block and report its SoA RMS")
@@ -142,8 +140,7 @@ def main(argv=None):
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     knobs = dict(sync_mode=args.sync_mode, fft_impl=args.fft_impl,
-                 fft_precision=args.fft_precision,
-                 carrier_precision=args.carrier_precision)
+                 fft_precision=args.fft_precision)
     template = sim.make_template()
     detector = make_detector(device, template, **knobs)
     oracle = None

@@ -48,7 +48,6 @@ from thrifty_tpu_torch.dsp.detector import BatchDetector, DetectorConfig
 BATCH = 256
 CONFIGS = {
     "matmul": dict(fft_impl="matmul"),
-    "carrier_high": dict(fft_impl="matmul", carrier_precision="high"),
     "fft_high": dict(fft_impl="matmul", fft_precision="high"),
     "fft_default": dict(fft_impl="matmul", fft_precision="default"),
 }

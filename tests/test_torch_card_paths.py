@@ -236,7 +236,7 @@ def test_tf32_restored_after_high_detect(cuda_device):
 @pytest.mark.parametrize("kw,launches", [
     (dict(fft_impl="matmul"), 1),                    # windowed carrier
     (dict(fft_impl="matmul3"), 1),
-    (dict(fft_impl="matmul", carrier_fast="off"), 2),
+    (dict(fft_impl="matmul", **STATS), 2),           # full carrier FFT
     (dict(fft_impl="matmul", sync_mode="integer"), 2),
     (dict(fft_impl="matmul", gate_capacity=4), 2),   # windowed + overflow
 ])

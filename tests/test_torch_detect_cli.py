@@ -162,10 +162,6 @@ TRANSFORM_FLAGS = {  # flag: (config field, JAX default, choices)
     "--fft-impl": ("fft_impl", "auto", ("auto", "matmul", "matmul3", "xla")),
     "--fft-precision": ("fft_precision", "highest",
                         ("highest", "high", "default")),
-    "--carrier-fast": ("carrier_fast", "auto", ("auto", "off")),
-    "--carrier-precision": ("carrier_precision", "auto",
-                            ("auto", "highest", "high", "default")),
-    "--ramp-fast": ("ramp_fast", "auto", ("auto", "off")),
 }
 
 
@@ -193,6 +189,42 @@ def test_transform_flags_accepted_and_validated(tmp_path, monkeypatch,
     assert getattr(port_detect.DetectorConfig(), field) == default
     with pytest.raises(SystemExit):
         main(detect_args(0, tmp_path / "x.toad", extra=[flag, "bogus"]))
+
+
+# The JAX detector's three sub-knobs of the matmul transforms (the
+# full-FFT carrier stage, a carrier-only precision, the full ramp): the
+# port always runs their 'auto' and has neither the fields nor the flags.
+RETIRED = {"--carrier-fast": "carrier_fast",
+           "--carrier-precision": "carrier_precision",
+           "--ramp-fast": "ramp_fast"}
+
+
+@pytest.mark.parametrize("command", ["detect", "bench"])
+@pytest.mark.parametrize("flag", sorted(RETIRED))
+def test_retired_transform_knobs_refused(tmp_path, capsys, command, flag):
+    """``detect`` and ``bench`` refuse each flag as a usage error before
+    they run, ``bench --ab`` refuses its field, and ``DetectorConfig``
+    has no such field."""
+    field = RETIRED[flag]
+    out = tmp_path / "x.toad"
+    argv = detect_args(0, out) if command == "detect" else [
+        "bench", "--program", "abcheck", "--ab", "fft_impl=xla",
+        "--batch", "8", "--device", "cpu"]
+    with pytest.raises(SystemExit) as exc:
+        main(argv + [flag, "auto"])
+    assert exc.value.code == 2
+    assert "unrecognized arguments: {} auto".format(flag) \
+        in capsys.readouterr().err
+    assert not out.exists()
+    if command == "bench":
+        with pytest.raises(SystemExit) as exc:
+            main(["bench", "--program", "abcheck", "--ab", field + "=auto",
+                  "--device", "cpu"])
+        assert exc.value.code == 2
+        assert "unknown DetectorConfig field {!r}".format(field) \
+            in capsys.readouterr().err
+    with pytest.raises(TypeError, match=field):
+        port_detect.DetectorConfig(**{field: "auto"})
 
 
 def test_pallas_off_refused_on_the_card(tmp_path, capsys):

@@ -172,13 +172,6 @@ def test_state_is_checked():
                             "'matmul', 'matmul3' or 'xla'"),
     (dict(fft_precision="quad"), "unknown fft_precision 'quad': expected "
                                  "'highest', 'high' or 'default'"),
-    (dict(carrier_fast="on"), "unknown carrier_fast 'on': expected 'auto' "
-                              "or 'off'"),
-    (dict(carrier_precision="hi"), "unknown carrier_precision 'hi': "
-                                   "expected 'auto', 'highest', 'high' or "
-                                   "'default'"),
-    (dict(ramp_fast="on"), "unknown ramp_fast 'on': expected 'auto' or "
-                           "'off'"),
     (dict(gate_capacity=8, use_pallas="on"),
      "gate_capacity and use_pallas='on' are mutually exclusive"),
 ])

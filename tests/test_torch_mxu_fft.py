@@ -273,9 +273,7 @@ def test_separable_ramp_matches_oracle():
     got = ramped(x, s, "matmul")
     sep_err = rel_err(got, ref)
     assert sep_err < 2e-6, sep_err
-    full = shift.fractional_shift_fft(torch.from_numpy(x),
-                                      torch.from_numpy(s), "matmul",
-                                      separable=False).numpy()
+    full = ramped(x, s, "matmul", separable=False)
     assert sep_err < rel_err(full, ref)
     held(got, jfft.fft_ramped(jnp.asarray(x), jnp.asarray(s), "matmul"),
          ref, 2e-6)
@@ -313,18 +311,14 @@ def test_separable_ramp_matmul3():
 
 
 def test_fractional_shift_ramp_choice():
-    """shift.fractional_shift_fft picks the separable or the full ramp as
-    JAX's does under ramp='separable' / 'full'."""
+    """shift.fractional_shift_fft takes the separable ramp on the
+    four-step path, as JAX's does under ramp='separable'."""
     x = rand(2, 16384, seed=19)
     s = np.array([40.25, -37.6], np.float32)
-    for ramp, separable in (("separable", True), ("full", False)):
-        got = shift.fractional_shift_fft(torch.from_numpy(x),
-                                         torch.from_numpy(s), "matmul",
-                                         separable=separable)
-        assert torch.equal(got, mxu_fft.fft_ramped(
-            torch.from_numpy(x), torch.from_numpy(s), "matmul",
-            separable=separable)), ramp
-        ref = jshift.fractional_shift_fft(jnp.asarray(x), jnp.asarray(s),
-                                          "matmul", ramp=ramp)
-        held(got.numpy(), ref, ramp_oracle(x, s),
-             2e-6 if separable else 1e-5)
+    got = shift.fractional_shift_fft(torch.from_numpy(x),
+                                     torch.from_numpy(s), "matmul")
+    assert torch.equal(got, mxu_fft.fft_ramped(
+        torch.from_numpy(x), torch.from_numpy(s), "matmul", separable=True))
+    ref = jshift.fractional_shift_fft(jnp.asarray(x), jnp.asarray(s),
+                                      "matmul", ramp="separable")
+    held(got.numpy(), ref, ramp_oracle(x, s), 2e-6)

@@ -223,8 +223,8 @@ def test_on_the_card(tmp_path, cuda_device, device_unfold, gate):
 
 @pytest.mark.parametrize("how", ["read", "read_unfold"])
 def test_ring_counts_the_consumers_wait(how):
-    """A read whose producer writes only after 50 ms adds at least 40 ms
-    to ``read_wait_ns``."""
+    """A read whose producer writes only 50 ms after the consumer is
+    about to block adds at least 40 ms to ``read_wait_ns``."""
     ring = native.RingBuffer(1 << 16)
     out = np.empty((2, 64), np.uint8)
     want = 2 * (64 - 16)
@@ -235,14 +235,17 @@ def test_ring_counts_the_consumers_wait(how):
     else:
         want -= 4
     before = ring.read_wait_ns
+    reading = threading.Event()
 
     def late():
+        assert reading.wait(timeout=10)
         time.sleep(0.05)
         ring.write(data[:want] if how == "read" else data[4:])
 
     producer = threading.Thread(target=late)
     producer.start()
     try:
+        reading.set()
         if how == "read":
             got = ring.read(want)
             assert len(got) == want

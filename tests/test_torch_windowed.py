@@ -1,15 +1,14 @@
 """The port's transform knobs in the detector and the capture gate, on
 the CPU, against the JAX package on the same captures.
 
-- The windowed carrier stage (``fft_impl='matmul'``, ``carrier_fast``)
-  against JAX's XLA program (``use_pallas='off'``, the program that has
-  it): every carrier interpolator at the deployment geometry (block
-  16384, the 4914-sample template), a wrapped window, the odd
-  geometries of tests/test_mxu_fft.py and the gate.
+- The windowed carrier stage (``fft_impl='matmul'``) against JAX's
+  XLA program (``use_pallas='off'``, the program that has it): every
+  carrier interpolator at the deployment geometry (block 16384, the
+  4914-sample template), a wrapped window, the odd geometries of
+  tests/test_mxu_fft.py and the gate.
 - The full-FFT matmul paths against JAX's kernel program
   (``use_pallas='on'``): integer, preshift and a bank.
-- ``ramp_fast='off'``, ``carrier_precision`` in the shared-FFT modes,
-  ``use_pallas`` 'on'/'off', the state's window (``carrier_win``) and
+- ``use_pallas`` 'on'/'off', the state's window (``carrier_win``) and
   the capture gate's windowed form.
 
 Tolerances are tests/test_torch_detector.py's (JAX's own .toad bar):
@@ -17,8 +16,6 @@ decisions, bins, lags and template indices exact; carrier_offset atol
 2e-3 bins, corr_offset atol 1e-3 samples, magnitudes and noise rtol
 1e-4.  The gate's floats rtol 1e-4 (tests/test_torch_capture.py).
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -143,28 +140,6 @@ def test_bank_matmul_against_kernel_program(sync_mode):
     assert np.all(got["template_idx"].numpy()[got["detected"].numpy()] == 1)
 
 
-def test_ramp_fast_off(full_cap):
-    got, ref = both(FULL_TPL, full_cap.blocks, ramp_fast="off", **MATMUL)
-    assert_outputs_match(got, ref)
-
-
-@pytest.mark.parametrize("kw", [dict(sync_mode="integer"),
-                                dict(sync_mode="preshift"),
-                                dict(carrier_fast="off")])
-def test_carrier_precision(small_cap, kw):
-    """Ignored where the carrier FFT is shared with the correlation
-    (integer, preshift: every output bit equal); in fractional sync it
-    reaches the carrier transform only, which computes in float32 on
-    the CPU (equal too)."""
-    base = DetectorConfig(block_len=BLOCK, history_len=HISTORY,
-                          carrier_window=(7, 110), fft_impl="matmul", **kw)
-    a = BatchDetector(TPL, base, device="cpu")(small_cap.blocks)
-    b = BatchDetector(TPL, dataclasses.replace(
-        base, carrier_precision="high"), device="cpu")(small_cap.blocks)
-    for k in a:
-        assert torch.equal(a[k], b[k]), k
-
-
 def test_use_pallas_off_is_the_plain_reduction(small_cap):
     """'off' names the plain reductions: a CPU detector runs them under
     every value (the wrapper's plain version for a CPU tensor, the same
@@ -223,7 +198,6 @@ def test_use_pallas_on_refuses_like_jax(kw, batch):
     dict(MATMUL, carrier_window=None),
     dict(MATMUL, peak_filter_len=5),
     dict(MATMUL, carrier_thresh=(0.0, 15.0, 1.0)),
-    dict(MATMUL, carrier_fast="off"),
     dict(carrier_window=(7, 110)),
 ])
 def test_state_window_equals_jax(kw):

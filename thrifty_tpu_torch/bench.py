@@ -772,7 +772,7 @@ def bench_abcheck(template, batch, base_cfg, overrides, float_tol=1e-3,
     output field's difference to one number (:func:`_field_diffs`).
     This is the evidence tool for config knobs whose numerics show
     only on the card -- e.g. ``fft_precision=high`` (TF32 tensor-core
-    GEMMs) or ``carrier_fast=off`` (full-FFT carrier stage).
+    GEMMs) or ``fft_impl=xla`` (cuFFT against the matmul transforms).
 
     ok criterion: decisions/indices identical, float surfaces within
     ``float_tol`` (absolute for offsets, relative for energy/noise).
@@ -1101,17 +1101,6 @@ def _parser():
                              "TF32 tensor cores, 'default' = bf16 "
                              "operands (float32 on the CPU) "
                              "[default: highest]")
-    parser.add_argument("--carrier-fast", type=str, default="auto",
-                        choices=["auto", "off"],
-                        help="windowed carrier DFT under a matmul impl "
-                             "(the A/B knob; 'off' = full-FFT carrier "
-                             "stage, 2 power/peak launches a batch "
-                             "instead of 1) [default: auto]")
-    parser.add_argument("--ramp-fast", type=str, default="auto",
-                        choices=["auto", "off"],
-                        help="separable fractional-sync ramp on the "
-                             "four-step path (the A/B knob; 'off' = "
-                             "explicit full-ramp product) [default: auto]")
     parser.add_argument("--bursts-every", type=int, default=4,
                         metavar="K",
                         help="batch/stream programs: plant a burst "
@@ -1123,11 +1112,6 @@ def _parser():
                              "duty-cycle scaling toward deployment "
                              "rates -- size --gate accordingly "
                              "[default: 4]")
-    parser.add_argument("--carrier-precision", type=str, default="auto",
-                        choices=["auto", "highest", "high", "default"],
-                        help="GEMM precision of the carrier transform "
-                             "only (fractional sync) [default: auto = "
-                             "follow --fft-precision]")
     parser.add_argument("--gate", type=int, default=-1, metavar="C",
                         help="carrier-gated correlation compaction "
                              "capacity at the headline batch "
@@ -1151,7 +1135,7 @@ def _parser():
                         help="program abcheck: DetectorConfig field "
                              "overrides for the B side, e.g. "
                              "fft_precision=high (TF32 GEMMs on the "
-                             "card) or carrier_fast=off (numeric fields "
+                             "card) or fft_impl=xla (numeric fields "
                              "coerced by the default's type; "
                              "gate_capacity=N is valid only with "
                              "--ab-knee, whose both-detected comparison "
@@ -1333,9 +1317,6 @@ def _run(args, device, overrides):
                               use_pallas=args.pallas,
                               fft_impl=args.fft_impl,
                               fft_precision=args.fft_precision,
-                              carrier_fast=args.carrier_fast,
-                              carrier_precision=args.carrier_precision,
-                              ramp_fast=args.ramp_fast,
                               # An explicit --gate grades the knob under
                               # the gated dataflow on BOTH sides (auto
                               # -1 stays ungated here: the certificate's
@@ -1388,9 +1369,6 @@ def _run(args, device, overrides):
     cfg = DetectorConfig(carrier_window=(7, 110), sync_mode=args.sync_mode,
                          use_pallas=args.pallas, fft_impl=args.fft_impl,
                          fft_precision=args.fft_precision,
-                         carrier_fast=args.carrier_fast,
-                         carrier_precision=args.carrier_precision,
-                         ramp_fast=args.ramp_fast,
                          gate_capacity=args.gate)
     detector = BatchDetector(template, cfg, device=device)
     new_len = detector.new_len  # stream samples consumed per block
@@ -1506,9 +1484,6 @@ def _run(args, device, overrides):
             "sync_mode": args.sync_mode, "pallas": args.pallas,
             "fft_impl": args.fft_impl,
             "fft_precision": args.fft_precision,
-            "carrier_fast": args.carrier_fast,
-            "carrier_precision": args.carrier_precision,
-            "ramp_fast": args.ramp_fast,
             "bursts_every": args.bursts_every, "input": args.input,
             "program": args.program, "bank": args.bank,
             "gate": args.gate, "device": backend,

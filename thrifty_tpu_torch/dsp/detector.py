@@ -50,11 +50,13 @@ The transforms are :mod:`mxu_fft`'s under ``fft_impl`` (``torch.fft``,
 cuFFT on the card, by default; the matmul family on request) at
 ``fft_precision``.  With a matmul impl, fractional sync, a carrier window
 and no peak filter or carrier stddev term, the carrier stage is a DFT at
-the window's bins only (``carrier_fast``, :func:`carrier.detect_windowed`)
-whose argmax runs as torch ops over [B, W]; the correlation still
-launches the kernel: one launch per batch.  ``use_pallas='off'`` (the
-plain reductions) is for a CPU detector only: on a CUDA device the
-kernel is the only reduction, and the detector refuses 'off'.
+the window's bins only (:func:`carrier.detect_windowed`) whose argmax
+runs as torch ops over [B, W]; the correlation still launches the
+kernel: one launch per batch.  The fractional-sync ramp is the
+separable one wherever the four-step runs (``mxu_fft.fft_ramped``).
+``use_pallas='off'`` (the plain reductions) is for a CPU detector only:
+on a CUDA device the kernel is the only reduction, and the detector
+refuses 'off'.
 
 On a CUDA device ``submit_raw`` runs the program as one CUDA graph
 (:func:`graph_step`, :class:`_GraphedProgram`): the first batch of each
@@ -99,8 +101,12 @@ class DetectorConfig:
     """Static configuration of the batched detector.
 
     The fields, defaults and accepted values are those of the JAX
-    package's ``DetectorConfig``; the transform knobs mean here what the
-    comments say.
+    package's ``DetectorConfig``, less its three sub-knobs of the matmul
+    transforms (the full-FFT carrier stage, a carrier-only precision and
+    the full ramp): the port always runs their default, the windowed
+    carrier DFT where eligible, ``fft_precision`` in every transform and
+    the separable ramp.  The transform knobs mean here what the comments
+    say.
     """
 
     block_len: int = 16384
@@ -133,17 +139,6 @@ class DetectorConfig:
     # GEMM precision of the matmul impls on the card: 'highest' float32,
     # 'high' TF32 tensor cores, 'default' bf16 operands (CPU: float32).
     fft_precision: str = "highest"
-    # Windowed carrier DFT: 'auto' = on when eligible (matmul impl,
-    # fractional sync, a carrier window, no peak filter, no carrier
-    # stddev term); 'off' = always the full-FFT carrier stage.
-    carrier_fast: str = "auto"
-    # Precision of the carrier transform only: 'auto' follows
-    # fft_precision; applied only in fractional sync, where the carrier
-    # transform is not reused by the correlation.
-    carrier_precision: str = "auto"
-    # Separable fractional-sync ramp on the four-step path: 'auto' = on
-    # under a matmul impl, 'off' = the explicit full ramp.
-    ramp_fast: str = "auto"
     gate_capacity: int = 0
 
 
@@ -153,10 +148,6 @@ _CHOICES = (
     ("fft_impl", mxu_fft.IMPLS, "'auto', 'matmul', 'matmul3' or 'xla'"),
     ("fft_precision", ("highest", "high", "default"),
      "'highest', 'high' or 'default'"),
-    ("carrier_fast", ("auto", "off"), "'auto' or 'off'"),
-    ("carrier_precision", ("auto", "highest", "high", "default"),
-     "'auto', 'highest', 'high' or 'default'"),
-    ("ramp_fast", ("auto", "off"), "'auto' or 'off'"),
 )
 
 
@@ -522,9 +513,7 @@ class BatchDetector:
             half = 0
         else:  # parabolic / gaussian / cosine: 3-point fits
             half = 1
-        if config.carrier_fast != "auto" \
-                or config.sync_mode != "fractional" \
-                or config.peak_filter_len != 0:
+        if config.sync_mode != "fractional" or config.peak_filter_len != 0:
             return None
         win = carrier.windowed_selection(
             config.carrier_window, config.carrier_thresh, config.block_len,
@@ -642,17 +631,11 @@ class BatchDetector:
         cfg = self.config
         if cfg.use_pallas == "on":
             self._check_kernel_program(blocks.shape[0])
-        # The carrier transform's precision: carrier_precision only where
-        # the carrier transform is not reused by the correlation
-        # (fractional sync: the windowed DFT or the full carrier FFT).
-        c_prec = cfg.fft_precision
-        if cfg.sync_mode == "fractional" and cfg.carrier_precision != "auto":
-            c_prec = cfg.carrier_precision
         if self._carrier_win is not None:
             fft = None  # fractional sync reads the blocks, not the FFT
-            carrier_out = self._carrier_stage_windowed(blocks, c_prec)
+            carrier_out = self._carrier_stage_windowed(blocks)
         else:
-            fft = mxu_fft.fft(blocks, cfg.fft_impl, c_prec)
+            fft = mxu_fft.fft(blocks, cfg.fft_impl, cfg.fft_precision)
             carrier_out = self._carrier_stage(fft)
         _, c_idx, c_off = carrier_out[:3]
 
@@ -680,7 +663,7 @@ class BatchDetector:
                 "(got {}), block_len divisible by 2048, and no "
                 "carrier peak filter".format(batch))
 
-    def _carrier_stage_windowed(self, blocks, c_prec):
+    def _carrier_stage_windowed(self, blocks):
         """Stages 1-2 from the DFT at the carrier window's bins plus the
         interpolator's margin (:func:`carrier.detect_windowed`): argmax,
         noise and threshold over [B, W] as torch ops, the sub-bin fit on
@@ -690,7 +673,8 @@ class BatchDetector:
         sel, ext, half = self._carrier_win
         c_det, c_idx, c_mag, c_noise, _, mag_w, rel = \
             carrier.detect_windowed(blocks, sel, ext, half,
-                                    cfg.carrier_thresh, cfg.fft_impl, c_prec)
+                                    cfg.carrier_thresh, cfg.fft_impl,
+                                    cfg.fft_precision)
         if self._interp is None:
             c_off = torch.zeros(c_idx.shape, dtype=torch.float32,
                                 device=blocks.device)
@@ -840,8 +824,7 @@ class BatchDetector:
             if cfg.sync_mode == "fractional":
                 spec = xcorr.despread_spec(
                     shift.fractional_shift_fft(
-                        src, shift_total, cfg.fft_impl, cfg.fft_precision,
-                        separable=cfg.ramp_fast == "auto"),
+                        src, shift_total, cfg.fft_impl, cfg.fft_precision),
                     self._tmpl_fft_conj)
             else:
                 # preshift: integer roll + the template spectrum

@@ -18,15 +18,15 @@ from thrifty_tpu_torch.dsp import mxu_fft
 
 
 def fractional_shift_fft(blocks: torch.Tensor, shift: torch.Tensor,
-                         impl="auto", precision="highest",
-                         separable=False) -> torch.Tensor:
+                         impl="auto", precision="highest") -> torch.Tensor:
     """FFT of ``blocks`` [..., N] shifted by ``shift`` [...] bins
     (positive moves energy to higher bins), with the transform ``impl``
-    and ``precision`` of :mod:`mxu_fft`.  ``separable`` factors the ramp
-    over the four-step split (matmul impls only; JAX's
-    ``ramp='separable'``); else the explicit reference-shaped product."""
-    return mxu_fft.fft_ramped(blocks, shift, impl, precision,
-                              separable=separable)
+    and ``precision`` of :mod:`mxu_fft`.  On the four-step path the ramp
+    is factored over its split (JAX's ``ramp='separable'``); elsewhere
+    it is the explicit reference-shaped product.  Kept as this module's
+    counterpart of JAX's ``shift.fractional_shift_fft``, which the parity
+    tests hold it against."""
+    return mxu_fft.fft_ramped(blocks, shift, impl, precision)
 
 
 def integer_roll_fft(fft: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

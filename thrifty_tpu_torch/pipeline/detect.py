@@ -21,10 +21,10 @@ preshift sync.  ``--corr-interp``, ``--carrier-interp`` and
 code-division bank, and ``--emit-txid`` writes its winning template as
 the txid.  The JAX CLI's transform knobs keep their names, choices and
 defaults: ``--pallas`` (the power/peak kernel; 'off', its plain
-version, with ``--device cpu`` only), ``--fft-impl`` (cuFFT or the matmul transforms),
-``--fft-precision`` and ``--carrier-precision`` (float32, TF32 or bf16
-GEMMs), ``--carrier-fast`` (the windowed carrier DFT) and
-``--ramp-fast`` (the separable fractional-sync ramp).
+version, with ``--device cpu`` only), ``--fft-impl`` (cuFFT or the
+matmul transforms, which bring the windowed carrier DFT and the
+separable fractional-sync ramp) and ``--fft-precision`` (float32, TF32
+or bf16 GEMMs).
 """
 
 from __future__ import annotations
@@ -220,34 +220,25 @@ def detect_batches(detector, batches, batch_size, rxid=-1,
                             overflowed=int(redone))
         return records
 
+    # Raw uint8 (2 B/sample) goes up and is converted on the device; with
+    # device_unfold it is the contiguous new bytes only (no repeated
+    # history), unfolded on the device too.
+    submit = detector.submit_raw_stream if device_unfold \
+        else detector.submit_raw
     try:
         for ts, idx, raw in batches:
             n = len(ts)
             if n == 0:  # a batch can be all-junk rows
                 continue
             bid = int(idx[0])
-            if device_unfold:
-                if n < batch_size:
-                    raw = np.concatenate(
-                        [raw, np.full((batch_size - n) * 2
-                                      * detector.new_len, 128, np.uint8)])
-                # Contiguous new bytes only (no repeated history); the
-                # unfold runs on the device.
-                new_raw = upload(raw, batch=bid)
-                with spans.span("submit", bid):
-                    batch = detector.submit_raw_stream(new_raw)
-                    done = mark()
-            else:
-                if n < batch_size:
-                    raw = np.concatenate(
-                        [raw, np.full((batch_size - n, raw.shape[1]), 128,
-                                      np.uint8)])
-                # Upload raw uint8 (2 B/sample); conversion runs on
-                # device.
-                rows = upload(raw, batch=bid)
-                with spans.span("submit", bid):
-                    batch = detector.submit_raw(rows)
-                    done = mark()
+            if n < batch_size:
+                pad = ((batch_size - n) * 2 * detector.new_len,) \
+                    if device_unfold else (batch_size - n, raw.shape[1])
+                raw = np.concatenate([raw, np.full(pad, 128, np.uint8)])
+            rows = upload(raw, batch=bid)
+            with spans.span("submit", bid):
+                batch = submit(rows)
+                done = mark()
             pending.append((ts, idx, n, raw, batch, done))
             # Keep one batch in flight: overlap host decode with device
             # work.
@@ -370,23 +361,6 @@ def _main(argv=None):
                              "TF32 tensor cores, 'default' = bf16 "
                              "operands (float32 on the CPU) "
                              "[default: highest]")
-    parser.add_argument("--carrier-fast", type=str, default="auto",
-                        choices=["auto", "off"],
-                        help="windowed carrier DFT: 'off' forces the "
-                             "full-FFT carrier stage (2 power/peak "
-                             "launches per batch instead of 1) "
-                             "[default: auto = on when eligible]")
-    parser.add_argument("--carrier-precision", type=str, default="auto",
-                        choices=["auto", "highest", "high", "default"],
-                        help="GEMM precision of the carrier transform "
-                             "only (fractional sync) [default: auto = "
-                             "follow --fft-precision]")
-    parser.add_argument("--ramp-fast", type=str, default="auto",
-                        choices=["auto", "off"],
-                        help="separable fractional-sync ramp on the "
-                             "four-step path: 'off' forces the explicit "
-                             "full-ramp product [default: auto = on "
-                             "under a matmul impl]")
     parser.add_argument("--emit-txid", action="store_true",
                         help="write .toads lines with txid taken from the "
                              "winning template of a template bank (the "
@@ -445,9 +419,6 @@ def _main(argv=None):
         use_pallas=args.pallas,
         fft_impl=args.fft_impl,
         fft_precision=args.fft_precision,
-        carrier_fast=args.carrier_fast,
-        carrier_precision=args.carrier_precision,
-        ramp_fast=args.ramp_fast,
         gate_capacity=args.gate_capacity,
     ), device=device)
 
